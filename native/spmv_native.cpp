@@ -1,6 +1,6 @@
 // Native ingestion backend: fast MatrixMarket parsing + COO normalization.
 //
-// TPU-native equivalent of the reference's C ingestion layer (vendored NIST
+// Native equivalent of the reference's C ingestion layer (vendored NIST
 // mmio src/lib/mmio.c + MM->COO parser src/lib/parser.c:30-153): banner and
 // typecode validation, real/integer/pattern fields, symmetric expansion
 // (off-diagonal mirroring), per-row length accumulation, and (row, col)
@@ -275,188 +275,10 @@ int spmv_coo_to_ell(int64_t m, int64_t nnz, const int64_t* rows,
   return SPMV_OK;
 }
 
-// ---------------------------------------------------------------------------
-// Bipartite edge coloring via recursive Euler splitting — the host planner
-// core for the Clos permutation router (ops/route.py). A 2^bits-regular
-// bipartite multigraph is 2^bits-edge-colorable (Konig); each level pairs
-// incident edge slots per (class, node) and 2-colors the alternating pairing
-// cycles. All O(E) per level with counting sorts.
-// ---------------------------------------------------------------------------
-int spmv_color_bipartite(int64_t e, const int64_t* left, const int64_t* right,
-                         int64_t n_left, int64_t n_right, int bits,
-                         int64_t* colors) {
-  if (e <= 0) return SPMV_OK;
-  if (e & 1) return SPMV_ERR_ENTRY;  // degrees must be even
-  std::vector<int64_t> cls(e, 0), order(e), lpair(e), rpair(e), m(e),
-      orbmin(e), counts;
-  std::vector<uint8_t> visited(e);
-  for (int lvl = 0; lvl < bits; ++lvl) {
-    // pair per (class, left node): stable counting sort by key
-    auto pair_side = [&](const int64_t* node, int64_t n_nodes,
-                         std::vector<int64_t>& pair_out) -> int {
-      int64_t n_keys = (int64_t(1) << lvl) * n_nodes;
-      counts.assign(static_cast<size_t>(n_keys) + 1, 0);
-      for (int64_t i = 0; i < e; ++i) counts[cls[i] * n_nodes + node[i] + 1]++;
-      for (int64_t k = 0; k < n_keys; ++k) counts[k + 1] += counts[k];
-      for (int64_t i = 0; i < e; ++i)
-        order[counts[cls[i] * n_nodes + node[i]]++] = i;
-      for (int64_t k = 0; k + 1 < e; k += 2) {
-        int64_t a = order[k], b = order[k + 1];
-        pair_out[a] = b;
-        pair_out[b] = a;
-      }
-      return SPMV_OK;
-    };
-    pair_side(left, n_left, lpair);
-    pair_side(right, n_right, rpair);
-    for (int64_t i = 0; i < e; ++i) m[i] = lpair[rpair[i]];
-    // orbit minima of m (cycle walking)
-    std::fill(visited.begin(), visited.end(), 0);
-    for (int64_t i = 0; i < e; ++i) {
-      if (visited[i]) continue;
-      int64_t mn = i, j = i;
-      do {
-        if (j < mn) mn = j;
-        visited[j] = 1;
-        j = m[j];
-      } while (j != i);
-      j = i;
-      do {
-        orbmin[j] = mn;
-        j = m[j];
-      } while (j != i);
-    }
-    for (int64_t i = 0; i < e; ++i)
-      cls[i] = cls[i] * 2 + (orbmin[i] < orbmin[rpair[i]] ? 1 : 0);
-  }
-  std::memcpy(colors, cls.data(), sizeof(int64_t) * static_cast<size_t>(e));
-  return SPMV_OK;
-}
-
-// ---------------------------------------------------------------------------
-// Window-engine prepare scan (formats/window.py::_cap_candidates/_geometry):
-// one fused pass per group size g over the per-nnz base fields computes the
-// window geometry extrema (d = q - blk*g) and the two per-(block, gid%8)
-// degree histograms the packing-cap ladder estimates V from. The Python scan
-// re-walked 8M+-element arrays ~8 times per g; this is one threaded pass.
-// Entries arrive in CSR row order, so blk = rq / g is non-decreasing: thread
-// ranges are aligned to block boundaries and the histogram writes are
-// disjoint (no merge, no atomics).
-// ---------------------------------------------------------------------------
-int spmv_window_scan(int64_t nnz, const int64_t* rq, const int64_t* lane,
-                     const int64_t* q, const int64_t* jres, int64_t g,
-                     int64_t nblocks, int64_t* d_min_out, int64_t* d_max_out,
-                     int32_t* hl, int32_t* hr) {
-  if (nnz <= 0 || g <= 0 || nblocks <= 0) return SPMV_ERR_ENTRY;
-  const int64_t hist_len = nblocks * 8 * 128;
-  std::memset(hl, 0, sizeof(int32_t) * static_cast<size_t>(hist_len));
-  std::memset(hr, 0, sizeof(int32_t) * static_cast<size_t>(hist_len));
-  int64_t d_min = INT64_MAX, d_max = INT64_MIN;
-#pragma omp parallel reduction(min : d_min) reduction(max : d_max)
-  {
-    int nt = omp_get_num_threads(), tid = omp_get_thread_num();
-    // block-aligned [lo, hi): first nnz whose blk >= ceil split
-    auto lower_bound_blk = [&](int64_t blk_target) -> int64_t {
-      int64_t lo = 0, hi = nnz;
-      while (lo < hi) {
-        int64_t mid = (lo + hi) / 2;
-        if (rq[mid] / g < blk_target) lo = mid + 1;
-        else hi = mid;
-      }
-      return lo;
-    };
-    int64_t b0 = nblocks * tid / nt, b1 = nblocks * (tid + 1) / nt;
-    int64_t lo = lower_bound_blk(b0), hi = lower_bound_blk(b1);
-    for (int64_t i = lo; i < hi; ++i) {
-      int64_t blk = rq[i] / g;
-      int64_t d = q[i] - blk * g;
-      if (d < d_min) d_min = d;
-      if (d > d_max) d_max = d;
-      int64_t base = (blk * 8 + (rq[i] % g) % 8) * 128;
-      hl[base + lane[i]]++;
-      hr[base + jres[i]]++;
-    }
-  }
-  *d_min_out = d_min == INT64_MAX ? 0 : d_min;
-  *d_max_out = d_max == INT64_MIN ? 0 : d_max;
-  return SPMV_OK;
-}
-
-// ---------------------------------------------------------------------------
-// Stable rank-within-key-group (formats/window.py::_rank_in_group): for each
-// entry, the number of earlier entries with the same key. Keys are
-// blk * stride + local with blk = key / stride NON-DECREASING (CSR row
-// order), so thread ranges split at blk boundaries and each thread walks its
-// slice sequentially with a blk-local counter table — replaces an
-// O(n log n) argsort with an O(n) pass.
-// ---------------------------------------------------------------------------
-int spmv_rank_in_group(int64_t nnz, const int64_t* key, int64_t stride,
-                       int64_t nblocks, int64_t* rank_out) {
-  if (nnz <= 0 || stride <= 0 || nblocks <= 0) return SPMV_ERR_ENTRY;
-#pragma omp parallel
-  {
-    int nt = omp_get_num_threads(), tid = omp_get_thread_num();
-    auto lower_bound_blk = [&](int64_t blk_target) -> int64_t {
-      int64_t lo = 0, hi = nnz;
-      while (lo < hi) {
-        int64_t mid = (lo + hi) / 2;
-        if (key[mid] / stride < blk_target) lo = mid + 1;
-        else hi = mid;
-      }
-      return lo;
-    };
-    int64_t b0 = nblocks * tid / nt, b1 = nblocks * (tid + 1) / nt;
-    int64_t lo = lower_bound_blk(b0), hi = lower_bound_blk(b1);
-    if (lo < hi) {
-      std::vector<int32_t> cnt(static_cast<size_t>((b1 - b0) * stride), 0);
-      const int64_t base = b0 * stride;
-      for (int64_t i = lo; i < hi; ++i)
-        rank_out[i] = cnt[static_cast<size_t>(key[i] - base)]++;
-    }
-  }
-  return SPMV_OK;
-}
-
-// ---------------------------------------------------------------------------
-// Window slot-slab fill (formats/window.py::prepare_window): scatter every
-// nnz into the value/sidx/gid slabs and bake the Q map, one fused threaded
-// pass. The edge-coloring packing guarantees one entry per (slot row, lane)
-// and per (slot row, residue), so all writes hit distinct cells — plain
-// parallel for, no atomics. mode: 0 = standard (dq + (blk*g)%8),
-// 1 = xdirect (raw q), 2 = shared_w (dq + (blk%bps)*g).
-// ---------------------------------------------------------------------------
-int spmv_window_fill(int64_t nnz, const int64_t* rq, const int64_t* lane,
-                     const int64_t* q, const int64_t* jres,
-                     const int64_t* srow, const double* data, int64_t g,
-                     int64_t k_pad, int64_t k_c, int64_t n_ktiles, int64_t wr,
-                     int64_t bps, int mode, double* vals, int8_t* sidx,
-                     int8_t* gslab, int8_t* rsrc) {
-  if (nnz <= 0 || g <= 0 || k_pad <= 0) return SPMV_ERR_ENTRY;
-#pragma omp parallel for schedule(static)
-  for (int64_t i = 0; i < nnz; ++i) {
-    int64_t blk = rq[i] / g, gid = rq[i] % g;
-    int64_t row = blk * k_pad + srow[i];
-    int64_t cell = row * 128 + lane[i];
-    vals[cell] = data[i];
-    sidx[cell] = static_cast<int8_t>(jres[i]);
-    gslab[cell] = static_cast<int8_t>(srow[i] < k_c ? gid / 8 : gid);
-    int64_t dq_staged;
-    if (mode == 1) {
-      dq_staged = q[i];
-    } else {
-      int64_t dq = q[i] - blk * g + wr;
-      dq_staged = mode == 2 ? dq + (blk % bps) * g : dq + (blk * g) % 8;
-    }
-    int64_t rrow = (blk * n_ktiles + srow[i] / 128) * 128 + jres[i];
-    rsrc[rrow * 128 + srow[i] % 128] = static_cast<int8_t>(dq_staged);
-  }
-  return SPMV_OK;
-}
-
 }  // extern "C"
 
 extern "C" {
 
-int spmv_native_abi_version() { return 4; }
+int spmv_native_abi_version() { return 5; }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
-"""spmv_openmp_cuda_tpu — a TPU-native SpMV framework.
+"""spmv_openmp_cuda_tpu — a JAX SpMV framework for NVIDIA GPUs.
 
-Brand-new JAX/XLA/Pallas implementation with the full capability surface of
+JAX/XLA/Pallas implementation with the full capability surface of
 the reference C/OpenMP/CUDA suite andreadiiorio/SpMV_openMP_CUDA (see
 SURVEY.md): MatrixMarket ingestion, COO/CSR/ELL formats, the complete
 partitioning-strategy kernel matrix, an oracle-checked benchmark harness,
@@ -36,7 +36,7 @@ from .io.mmio import mm_to_csr, mm_to_ell, read_coo, write_mtx
 
 
 def __getattr__(name):
-    # lazy engine exports (they pull in jax.experimental.pallas)
+    # lazy engine exports: importing the package does not build the registry
     if name == "AutoSpMV":
         from .models.auto import AutoSpMV
 
@@ -45,14 +45,6 @@ def __getattr__(name):
         from .formats import dia
 
         return getattr(dia, name)
-    if name in ("prepare_routed_auto", "routed_auto_spmv", "RoutedError"):
-        from .formats import routed
-
-        return getattr(routed, name)
-    if name in ("prepare_lanes_small", "lanes_small_spmv", "LanesError"):
-        from .formats import lanes
-
-        return getattr(lanes, name)
     if name in ("save_prepared", "load_prepared"):
         from .formats import serialize
 

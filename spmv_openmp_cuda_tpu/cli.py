@@ -34,7 +34,7 @@ from .ops import registry
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="spmv_openmp_cuda_tpu",
-        description="TPU-native SpMV (y = A @ x) on MatrixMarket matrices",
+        description="JAX SpMV (y = A @ x) on MatrixMarket matrices",
     )
     p.add_argument(
         "matrix",
@@ -57,9 +57,8 @@ def build_argparser() -> argparse.ArgumentParser:
         "--dtype",
         choices=["float32", "float64"],
         default=None,
-        help="compute dtype (overrides SPMV_DTYPE; float64 rides the "
-        "double-float Pallas engines where the structure allows, the XLA "
-        "engines otherwise — raw Pallas kernels are 32-bit)",
+        help="compute dtype (overrides SPMV_DTYPE; float64 runs every "
+        "engine natively, bf16-storage modes remap to their float64 twin)",
     )
     p.add_argument("--list-modes", action="store_true", help="list kernels and exit")
     p.add_argument(
@@ -101,96 +100,41 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _adapt_loaded(operands, spec, cfg):
-    """Validate/adapt a deserialized prepared format for the selected mode.
+def _adapt_loaded(operands, spec):
+    """Validate a deserialized prepared format for the selected mode.
 
-    Returns (operands, error). A DeviceDIA saved by DIA_ROWS loads under the
-    PL_DIA_* modes by re-deriving the (cheap, all-static) Pallas plan, and a
-    (DeviceDIA, plan) checkpoint unwraps for DIA_ROWS; any other kind/mode
-    mismatch is a friendly error instead of a trace-time crash.
-    """
+    Returns (operands, error): a kind/mode mismatch is a friendly error
+    instead of a trace-time crash."""
     from .formats.binned import BinnedCSR
-    from .formats.dia import DeviceDIA, DeviceDIADF
-    from .formats.lanes import LanesSmall
+    from .formats.dia import DeviceDIA
     from .formats.matrix import DeviceCSR, DeviceELL
-    from .formats.routed import RoutedCSR, RoutedChunks
-    from .formats.window import WindowCSR
 
-    is_dia_pair = (
-        isinstance(operands, tuple)
-        and len(operands) == 2
-        and isinstance(operands[0], DeviceDIA)
-    )
-    is_diadf_pair = (
-        isinstance(operands, tuple)
-        and len(operands) == 2
-        and isinstance(operands[0], DeviceDIADF)
-    )
-    if spec.name in ("PL_DIA_ROWS", "PL_DIA_BF16"):
-        if is_dia_pair:
-            return operands, None
-        if isinstance(operands, DeviceDIA):
-            from .ops.spmv_pallas import pad_dia_for_pallas, plan_dia
-
-            plan = plan_dia(operands)
-            return (pad_dia_for_pallas(operands, plan), plan), None
-    if spec.name == "PL_DIA_F64":
-        if is_diadf_pair:
-            return operands, None
-        if isinstance(operands, DeviceDIADF):
-            from .ops.spmv_pallas import (
-                DF_DIA_VMEM_BUDGET, pad_dia_df_for_pallas, plan_dia,
-            )
-
-            plan = plan_dia(operands.as_dia(), vmem_budget=DF_DIA_VMEM_BUDGET)
-            return (pad_dia_df_for_pallas(operands, plan), plan), None
-    if spec.name == "PL_CSR_WINDOW_F64":
-        if isinstance(operands, WindowCSR) and operands.vals_lo is not None:
-            return operands, None
-        return None, (
-            "mode PL_CSR_WINDOW_F64 needs a double-float WindowCSR "
-            "checkpoint (vals_lo present)"
-        )
     expected = {
         "DIA_ROWS": DeviceDIA,
+        "DIA_BF16": DeviceDIA,
         "CSR_ROWS": DeviceCSR,
         "CSR_ROWS_BINNED": BinnedCSR,
-        "PL_CSR_ROUTED": (RoutedCSR, RoutedChunks),
-        "PL_CSR_ROUTED_BF16": (RoutedCSR, RoutedChunks),
-        "PL_CSR_WINDOW": WindowCSR,
-        "PL_CSR_WINDOW_BF16": WindowCSR,
-        "PL_CSR_LANES": LanesSmall,
         "ELL_ROWS": DeviceELL,
         "ELL_ROWS_NOSIMD": DeviceELL,
         "ELL_ROWS_NORL": DeviceELL,
         "ELL_ROWS_T": DeviceELL,
-        "PL_ELL_ROWS_T": DeviceELL,
     }.get(spec.name)
     if expected is None:
         return None, (
             f"mode {spec.name} cannot run from a serialized prepared format"
         )
-    if spec.name == "DIA_ROWS" and is_dia_pair:
-        return operands[0], None
     if not isinstance(operands, expected):
-        kind = type(operands[0] if is_dia_pair else operands).__name__
         return None, (
-            f"loaded prepared format {kind} does not match mode {spec.name}"
-        )
-    if isinstance(operands, WindowCSR) and operands.vals_lo is not None:
-        return None, (
-            f"loaded double-float WindowCSR needs mode PL_CSR_WINDOW_F64, "
-            f"not {spec.name}"
+            f"loaded prepared format {type(operands).__name__} does not "
+            f"match mode {spec.name}"
         )
     if isinstance(operands, DeviceELL):
-        want_t = spec.name in ("ELL_ROWS_T", "PL_ELL_ROWS_T")
+        want_t = spec.name == "ELL_ROWS_T"
         if operands.transposed != want_t:
             return None, (
                 f"loaded DeviceELL transposed={operands.transposed} does not "
                 f"match mode {spec.name}"
             )
-        if spec.name == "PL_ELL_ROWS_T":
-            return (operands, cfg.pallas_block_n), None
     return operands, None
 
 
@@ -208,6 +152,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not args.matrix or not args.vector:
         build_argparser().error("the following arguments are required: matrix, vector")
 
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     cfg = Config.from_env()
     if args.dtype:
         import dataclasses as _dc
@@ -228,39 +175,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     coo = read_coo(args.matrix)
     csr = coo_to_csr(coo)
     if is_auto:
-        # structure-driven selection (models.auto policy): DIA when the
-        # diagonal fill stays bounded, the routed engine otherwise; f64
-        # rides the double-float Pallas engines (ops/dfloat.py) where the
-        # structure allows and the XLA binned path for general sparsity
-        from .models.auto import select_format
+        # structure-driven selection and its fallback: AutoSpMV's own
+        from .models.auto import AUTO_MODES, select_format
 
         fmt = select_format(csr)
-        f64 = cfg.dtype == "float64"
-        mode = {
-            "dia": "PL_DIA_F64" if f64 else "PL_DIA_ROWS",
-            "dia_resid": "PL_DIA_RESID_F64" if f64 else "PL_DIA_RESID",
-            "window": "PL_CSR_WINDOW_F64" if f64 else "PL_CSR_WINDOW",
-            "routed": "PL_CSR_ROUTED_F64" if f64 else "PL_CSR_ROUTED",
-        }[fmt]
+        mode = AUTO_MODES[fmt]
         print(f"#auto: format={fmt} -> {mode}")
-    try:
-        spec = registry.get(mode)
-    except KeyError as e:
-        print(f"ERROR: {e.args[0]}", file=sys.stderr)
-        return 1
-    if cfg.dtype == "float64" and spec.impl == "pallas" and not spec.f64:
-        # Mosaic kernels are 32-bit: remap explicit PL_* modes to a
-        # double-semantics engine — the double-float Pallas DIA where the
-        # structure allows, else the XLA engine analog (AUTO maps f64 the
-        # same way)
-        remap = {
-            "PL_DIA_ROWS": "PL_DIA_F64",
-            "PL_DIA_BF16": "PL_DIA_F64",
-            "PL_ELL_ROWS_T": "ELL_ROWS_T",
-        }
-        new_mode = remap.get(mode, "CSR_ROWS_BINNED")
+    spec = registry.get(mode)
+    if cfg.dtype == "float64" and not spec.f64:
+        # bf16-storage modes cannot hold double values: run the same
+        # engine with a float64 slab
+        new_mode = {"DIA_BF16": "DIA_ROWS"}[mode]
         print(
-            f"#dtype: float64 unsupported by Pallas mode {mode}; "
+            f"#dtype: float64 unsupported by bf16 mode {mode}; "
             f"remapping to {new_mode}"
         )
         mode = new_mode
@@ -307,29 +234,24 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .formats.serialize import load_prepared
 
         operands = load_prepared(args.load_prepared)
-        operands, err = _adapt_loaded(operands, spec, cfg)
+        operands, err = _adapt_loaded(operands, spec)
         if err:
             print(f"ERROR: {err}", file=sys.stderr)
             return 1
+    elif is_auto:
+        from .models.auto import prepare_format
+
+        got, spec, operands = prepare_format(csr, fmt, cfg)
+        if got != fmt:
+            print(f"#auto: {mode} infeasible; falling back to {spec.name}")
     else:
         from .formats.dia import DiaFillError
-        from .formats.window import WindowError
 
         try:
             operands = spec.prepare(csr, ell, cfg)
-        except (DiaFillError, WindowError) as e:
-            if not is_auto:
-                print(f"ERROR: {e}", file=sys.stderr)
-                return 1
-            # the structural guess (DIA fill / window padding estimate)
-            # tripped the exact prepare-time cap: fall through to the
-            # general engine (AutoSpMV policy catches the same errors)
-            mode = (
-                "CSR_ROWS_BINNED" if cfg.dtype == "float64" else "PL_CSR_ROUTED"
-            )
-            print(f"#auto: {spec.name} infeasible ({e}); falling back to {mode}")
-            spec = registry.get(mode)
-            operands = spec.prepare(csr, ell, cfg)
+        except DiaFillError as e:
+            print(f"ERROR: {e}", file=sys.stderr)
+            return 1
     if args.save_prepared:
         from .formats.serialize import save_prepared
 
@@ -347,8 +269,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     xj = jax.device_put(jnp.asarray(x, dtype=cfg.jnp_dtype))
     y = jax.block_until_ready(f(xj))  # includes compile
     elapsed = time.perf_counter() - t0
-    # internal time by chain slope (block_until_ready does not synchronize
-    # on every backend and single calls carry fixed dispatch cost)
+    # internal time by chain slope: the difference of two chain lengths
+    # cancels the fixed per-call dispatch cost
     run = spec.run
 
     K = 8  # spmv's per loop iteration (amortizes loop overhead)

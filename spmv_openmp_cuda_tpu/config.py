@@ -1,6 +1,6 @@
-"""Run configuration for the TPU SpMV framework.
+"""Run configuration for the SpMV framework.
 
-TPU-native analog of the reference's three-tier config system
+Analog of the reference's three-tier config system
 (reference: src/include/config.h:21-32 CONFIG struct, compile-time macros
 config.h:38-119, and env overrides utils.c:279-302): everything is collapsed
 into one dataclass with environment-variable overrides, as SURVEY.md section 5
@@ -44,12 +44,12 @@ FAIR_CHUNKS_FOLDING: int = 4
 #: (reference: config.h:76 RNDVECTORSIZE).
 RNDVECTORSIZE: int = 100_000
 
-#: TPU lane width: ELL slabs pad their width to a multiple of this so the
-#: padded dimension maps onto the 8x128 VPU lanes (the cudaMallocPitch analog,
+#: Minor-axis alignment of the device slabs: ELL widths, DIA rows and
+#: binned classes pad to a multiple of this (the cudaMallocPitch analog,
 #: reference: cudaUtils.cu:56-98).
 LANE: int = 128
 
-#: TPU sublane count for float32.
+#: Second-axis alignment of the device slabs.
 SUBLANE: int = 8
 
 _DTYPES = {
@@ -64,22 +64,13 @@ class Config:
     """One run's configuration (reference CONFIG struct analog).
 
     grid_rows/grid_cols mirror the reference's 2D tiling grid
-    (reference: config.h:22-23, default 8x8 at main.cu:57-60). block_rows /
-    block_width are the Pallas launch-geometry analog of the reference's CUDA
-    BLOCKS_1D / BLOCKS_2D_WARP_R (config.h:102-109).
+    (reference: config.h:22-23, default 8x8 at main.cu:57-60).
     """
 
     grid_rows: int = 8
     grid_cols: int = 8
-    #: Pallas grid: rows per program block (BLOCKS_1D analog).
-    block_rows: int = 256
-    #: Pallas grid: slab-width columns per program block (warp-size analog).
-    block_width: int = 128
-    #: Pallas kernels: output rows per grid step (the CUDA launch-geometry
-    #: analog swept like the reference's 192/256/384 block configs).
-    pallas_block_n: int = 2048
-    #: Compute dtype on device. float64 is kept for oracle parity but TPUs
-    #: emulate it; float32 is the performance default (SURVEY.md section 7).
+    #: Compute dtype on device. float64 is the reference's arithmetic and
+    #: runs natively; float32 is the performance default.
     dtype: str = "float32"
     #: Timed repetitions for avg/var stats.
     avg_times_iteration: int = AVG_TIMES_ITERATION
@@ -102,7 +93,7 @@ class Config:
     def __post_init__(self):
         if self.dtype == "float64":
             # double precision (the reference's native dtype) needs the x64
-            # flag or jnp silently degrades to f32; XLA emulates f64 on TPU.
+            # flag or jnp silently degrades to f32.
             # NOTE: jax_enable_x64 is process-global and sticky by JAX
             # design — enable it once at config construction, not lazily
             # from a property getter mid-run.
@@ -125,9 +116,6 @@ class Config:
         env_map = {
             "GRID_ROWS": ("grid_rows", int),
             "GRID_COLS": ("grid_cols", int),
-            "BLOCK_ROWS": ("block_rows", int),
-            "BLOCK_WIDTH": ("block_width", int),
-            "PALLAS_BLOCK_N": ("pallas_block_n", int),
             "SPMV_DTYPE": ("dtype", str),
             "AVG_TIMES_ITERATION": ("avg_times_iteration", int),
             "SPMV_SCHEDULE": ("schedule", str),

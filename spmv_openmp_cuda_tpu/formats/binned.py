@@ -1,8 +1,8 @@
 """Row-binned jagged-ELL device format ("binned CSR").
 
-The TPU-native answer to the reference's CSR kernels (SURVEY.md section 7
-"hard parts"): IRP-driven scalar loops don't vectorize, and nnz-stream
-segment-sums lower to scatter — measured ~0.1 GFLOPS on v5e. Instead, rows
+An answer to the reference's CSR kernels (SURVEY.md section 7 "hard
+parts"): IRP-driven scalar loops don't vectorize, and nnz-stream
+segment-sums lower to a scatter. Instead, rows
 are permuted by length (the row_binning pass = the reference's
 dynamic-scheduling/chunk-balance analog, ompChunksDivide.h) and grouped into
 width classes; each class is a dense transposed (W_c, M_c) slab, so the whole
@@ -29,7 +29,7 @@ from .matrix import CSRMatrix, _ceil_to
 
 
 def width_classes(max_w: int) -> List[int]:
-    """Width-class boundaries: 8, 16, 32, ... (sublane-aligned doubling).
+    """Width-class boundaries: 8, 16, 32, ... (SUBLANE-aligned doubling).
 
     Doubling bounds per-row padding below 2x (plus alignment), the same
     waste envelope the reference accepts for ELL as a whole but applied
@@ -101,9 +101,9 @@ def prepare_binned_csr(csr: CSRMatrix, dtype=jnp.float32) -> BinnedCSR:
         if cnt == 0 and w != classes[0]:
             start = end
             continue
-        # XLA tiles arrays (8, 128) physically: transposed slabs pay a
-        # 128-row lane pad, row-major slabs a 128-entry width pad. Pick the
-        # layout with the smaller physical footprint for this class.
+        # slabs align to (SUBLANE, LANE): transposed slabs pad rows to 128,
+        # row-major slabs pad the width to 128. Pick the layout with the
+        # smaller padded footprint for this class.
         phys_t = w * _ceil_to(max(cnt, 1), LANE)
         phys_r = _ceil_to(max(cnt, 1), SUBLANE) * _ceil_to(w, LANE)
         layout = "t" if phys_t <= phys_r else "r"

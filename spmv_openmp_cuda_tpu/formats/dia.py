@@ -2,24 +2,22 @@
 
 The reference stores banded FEM/thermal matrices (its headline benchmarks) as
 CSR/ELL and pays per-nnz index reads plus random x access
-(reference: src/SpMV_ELL_OMP.c:33-67, src/SpMV_CUDA.cu:79-96). On TPU the
-idiomatic storage for such matrices is by diagonal: y = sum_d diag_d * x
-shifted by d. No column indices (half the memory traffic of ELL), no gather
-(the shift is a static slice), everything dense and lane-parallel — this is
-the speed-of-light format whenever the matrix's nnz concentrate on few
-diagonals.
+(reference: src/SpMV_ELL_OMP.c:33-67, src/SpMV_CUDA.cu:79-96). Stored by
+diagonal instead, y = sum_d diag_d * (x shifted by offset_d): no column
+indices (half the bytes of ELL), no gather (each shift is one contiguous
+slice of a zero-padded x), and every read runs along rows, so it coalesces.
+This is the speed-of-light format whenever the matrix's nnz concentrate on
+few diagonals.
 
-Layout is 2D-native: the row axis is laid out as (S, 128) sublane-rows x
-lanes, so every arithmetic op runs at full (8, 128) VPU width. A flat shift
-by `off` becomes two lane-aligned slices: with q, r = divmod(off, 128),
-  x_shifted[(s, l)] = xp[s + q, l + r]            (l + r < 128)
-                    = xp[s + q + 1, l + r - 128]  (otherwise)
-i.e. concat(lo[:, r:], hi[:, :r]) of two row-shifted views — measured at
-~500 GB/s on v5e versus ~23 GB/s for the 1D-unrolled formulation.
+Layout: the slab is diagonal-major, data[d, i] = A[i, i + offsets[d]] for
+row i < m_pad (0 where the column falls outside the matrix). x is padded
+once by pad_lo = max(0, -min offset) zeros in front and pad_hi = max(0, max
+offset) behind, so row i of diagonal d reads xp[pad_lo + offsets[d] + i],
+always in bounds.
 
 Like the reference's ELL size cap (parser.c:223-232), conversion enforces a
 padding budget: if the dense diagonals would exceed `max_fill_ratio` x nnz,
-DiaFillError is raised and callers fall back to ELL/binned-CSR.
+DiaFillError is raised and callers fall back to a general engine.
 """
 from __future__ import annotations
 
@@ -42,192 +40,69 @@ class DiaFillError(ValueError):
 @functools.partial(
     jax.tree_util.register_dataclass,
     data_fields=["data"],
-    meta_fields=["offsets", "shape", "nnz", "pad_sub"],
+    meta_fields=["offsets", "shape", "nnz"],
 )
 @dataclasses.dataclass
 class DeviceDIA:
-    """data[d, s, l] = A[i, i + offsets[d]] for flat row i = s * 128 + l
-    (0 where outside the matrix).
+    """data[d, i] = A[i, i + offsets[d]] (0 where outside the matrix)."""
 
-    `pad_sub` is the number of leading zero sublane-rows in the padded-x
-    layout (see pad_x_dia): ceil(max |offset| / 128), so every shifted read
-    is an in-bounds static slice.
-    """
-
-    data: jax.Array  # (D, S, LANE)
+    data: jax.Array  # (D, m_pad)
     offsets: Tuple[int, ...]  # static: diagonal offsets (c - r), ascending
     shape: Tuple[int, int] = (0, 0)
     nnz: int = 0
-    pad_sub: int = 0
 
     @property
     def m_pad(self) -> int:
-        return self.data.shape[1] * LANE
+        return self.data.shape[1]
 
+    @property
+    def pad_lo(self) -> int:
+        return max(0, -self.offsets[0]) if self.offsets else 0
 
-def _dia_host_slab(csr: CSRMatrix, max_fill_ratio: float):
-    """Shared host-side diagonal materialization: (data64 (D, m_pad),
-    offsets, pad_sub)."""
-    m, n = csr.shape
-    rows = csr.row_ids().astype(np.int64)
-    offs = csr.indices - rows  # c - r per nnz
-    uniq, inv = np.unique(offs, return_inverse=True)
-    d = uniq.shape[0]
-    m_pad = max(_ceil_to(max(m, 1), LANE), LANE)
-    if d * m_pad > max_fill_ratio * max(csr.nnz, 1):
-        raise DiaFillError(
-            f"{d} diagonals x {m_pad} rows = {d * m_pad} slots > "
-            f"{max_fill_ratio}x nnz ({csr.nnz})"
-        )
-    data = np.zeros((d, m_pad), dtype=np.float64)
-    data[inv, rows] = csr.data
-    pad_sub = max(1, -(-int(np.abs(uniq).max(initial=0)) // LANE))
-    return data, uniq, pad_sub
+    @property
+    def pad_hi(self) -> int:
+        return max(0, self.offsets[-1]) if self.offsets else 0
 
 
 def prepare_dia(
     csr: CSRMatrix, dtype=jnp.float32, max_fill_ratio: float = 3.0
 ) -> DeviceDIA:
     m, n = csr.shape
-    data, uniq, pad_sub = _dia_host_slab(csr, max_fill_ratio)
-    d, m_pad = data.shape
-    return DeviceDIA(
-        data=jnp.asarray(data.reshape(d, m_pad // LANE, LANE), dtype=dtype),
-        offsets=tuple(int(o) for o in uniq),
-        shape=(m, n),
-        nnz=csr.nnz,
-        pad_sub=pad_sub,
-    )
-
-
-@functools.partial(
-    jax.tree_util.register_dataclass,
-    data_fields=["data", "data_lo"],
-    meta_fields=["offsets", "shape", "nnz", "pad_sub"],
-)
-@dataclasses.dataclass
-class DeviceDIADF:
-    """Double-float DIA: the f64 diagonal slab carried as an (hi, lo) f32
-    pair (48 mantissa bits; ops/dfloat.py). The TPU-native storage for the
-    reference's double-precision semantics (macros.h:63-76) on a chip with
-    no fast f64 datapath."""
-
-    data: jax.Array  # (D, S, LANE) f32 — hi words
-    data_lo: jax.Array  # (D, S, LANE) f32 — lo words
-    offsets: Tuple[int, ...]  # no default: () would silently mean 0 diagonals
-    shape: Tuple[int, int] = (0, 0)
-    nnz: int = 0
-    pad_sub: int = 0
-
-    def as_dia(self) -> DeviceDIA:
-        """DeviceDIA view of the hi slab (for plan/pad geometry reuse)."""
-        return DeviceDIA(
-            data=self.data,
-            offsets=self.offsets,
-            shape=self.shape,
-            nnz=self.nnz,
-            pad_sub=self.pad_sub,
-        )
-
-
-def prepare_dia_df(
-    csr: CSRMatrix, max_fill_ratio: float = 3.0
-) -> DeviceDIADF:
-    m, n = csr.shape
-    data, uniq, pad_sub = _dia_host_slab(csr, max_fill_ratio)
-    d, m_pad = data.shape
-    from ..ops.dfloat import split_f64
-
-    hi, lo = split_f64(data)
-    shape3 = (d, m_pad // LANE, LANE)
-    return DeviceDIADF(
-        data=jnp.asarray(hi.reshape(shape3)),
-        data_lo=jnp.asarray(lo.reshape(shape3)),
-        offsets=tuple(int(o) for o in uniq),
-        shape=(m, n),
-        nnz=csr.nnz,
-        pad_sub=pad_sub,
-    )
-
-
-def split_offsets(
-    csr: CSRMatrix,
-    max_fill_ratio: float = 3.0,
-    min_occ_frac: float = 0.12,
-    max_resid_frac: float = 0.25,
-) -> np.ndarray:
-    """Dense/sparse offset split for the DIA+residual hybrid.
-
-    Real banded matrices carry a fringe of scattered nnz beyond their dense
-    diagonals (e.g. raefsky1: 91 full diagonals + a few hundred stragglers);
-    pure DIA pays a whole m_pad-length diagonal for every straggler offset.
-    Returns a keep mask per nnz: offsets occupied on >= min_occ_frac of rows
-    go to DIA, the rest to the windowed residual. Raises DiaFillError when
-    the kept diagonals still exceed the fill budget or the residual fraction
-    is too large to be worth the hybrid.
-    """
-    m, n = csr.shape
-    rows = csr.row_ids().astype(np.int64)
-    offs = csr.indices - rows
-    uniq, inv, cnt = np.unique(offs, return_inverse=True, return_counts=True)
-    keep_off = cnt >= max(min_occ_frac * m, 2)
-    nnz_kept = int(cnt[keep_off].sum())
-    nnz_resid = csr.nnz - nnz_kept
+    rows = csr.row_ids()
+    uniq, inv = np.unique(csr.indices - rows.astype(np.int64), return_inverse=True)
     m_pad = max(_ceil_to(max(m, 1), LANE), LANE)
-    if not keep_off.any() or int(keep_off.sum()) * m_pad > max_fill_ratio * max(
-        nnz_kept, 1
-    ):
-        raise DiaFillError("no dense-diagonal core under the fill budget")
-    if nnz_resid > max_resid_frac * csr.nnz:
+    if uniq.shape[0] * m_pad > max_fill_ratio * max(csr.nnz, 1):
         raise DiaFillError(
-            f"residual {nnz_resid}/{csr.nnz} nnz exceeds "
-            f"{max_resid_frac:.0%} hybrid budget"
+            f"{uniq.shape[0]} diagonals x {m_pad} rows = "
+            f"{uniq.shape[0] * m_pad} slots > {max_fill_ratio}x nnz ({csr.nnz})"
         )
-    return keep_off[inv]
+    data = np.zeros((uniq.shape[0], m_pad), dtype=np.float64)
+    data[inv, rows] = csr.data
+    return DeviceDIA(
+        data=jnp.asarray(data, dtype=dtype),
+        offsets=tuple(int(o) for o in uniq),
+        shape=(m, n),
+        nnz=csr.nnz,
+    )
 
 
 def pad_x_dia(x: jax.Array, mat: DeviceDIA) -> jax.Array:
-    """Zero-pad x into the (S + 2*pad_sub, LANE) sublane-row layout.
+    """x -> [pad_lo zeros | x | zeros], length pad_lo + m_pad + pad_hi.
 
-    Padded layout: [pad_sub zero rows | x (length n, row-major over lanes) |
-    zeros up to S + 2*pad_sub rows], so x[i + off] for any |off| <=
-    pad_sub*LANE and i < S*LANE is in bounds.
-    """
-    s = mat.data.shape[1]
-    # x entries beyond row-reach s*LANE + pad_sub*LANE are never read by any
-    # shifted view (wide matrices, n >> m): clip before padding
-    limit = (s + mat.pad_sub) * LANE
-    xc = x[:limit]
-    flat = jnp.pad(
-        xc.astype(mat.data.dtype), (mat.pad_sub * LANE, limit - xc.shape[0])
-    )
-    return flat.reshape(s + 2 * mat.pad_sub, LANE)
-
-
-def shifted_view(xp: jax.Array, off: int, s: int, base_sub: int) -> jax.Array:
-    """(s, LANE) view of xp holding x[i + off] for flat i in the block that
-    starts at sublane-row base_sub of xp's un-padded origin."""
-    q, r = divmod(off, LANE)
-    lo = jax.lax.slice_in_dim(xp, base_sub + q, base_sub + q + s)
-    if r == 0:
-        return lo
-    hi = jax.lax.slice_in_dim(xp, base_sub + q + 1, base_sub + q + 1 + s)
-    return jnp.concatenate([lo[:, r:], hi[:, :r]], axis=1)
-
-
-def dia_spmv_padded(mat: DeviceDIA, xp: jax.Array) -> jax.Array:
-    """y = A @ x from pre-padded xp (see pad_x_dia), pure-XLA formulation.
-
-    Each diagonal contributes data[d] * (two-slice lane-shifted view of xp),
-    unrolled over the (static) diagonal set. All ops are (S, 128) 2D so the
-    VPU runs at full width; XLA fuses the sum into one pass over the slab.
-    """
-    d, s, _ = mat.data.shape
-    acc = jnp.zeros((s, LANE), dtype=mat.data.dtype)
-    for i, off in enumerate(mat.offsets):
-        acc = acc + mat.data[i] * shifted_view(xp, off, s, mat.pad_sub)
-    return acc.reshape(-1)[: mat.shape[0]]
+    Entries past m_pad + pad_hi, the last one a diagonal can read (wide
+    matrices, n >> m), are clipped."""
+    reach = mat.m_pad + mat.pad_hi
+    xc = x[:reach]
+    return jnp.pad(xc, (mat.pad_lo, reach - xc.shape[0]))
 
 
 def dia_spmv(mat: DeviceDIA, x: jax.Array) -> jax.Array:
-    return dia_spmv_padded(mat, pad_x_dia(x, mat))
+    """y = A @ x: one static slice of the padded x per diagonal, which XLA
+    fuses into a single pass over the slab. bf16 slabs accumulate in f32."""
+    acc_t = jnp.promote_types(mat.data.dtype, jnp.float32)
+    xp = pad_x_dia(x.astype(acc_t), mat)
+    m_pad, lo = mat.m_pad, mat.pad_lo
+    acc = jnp.zeros(m_pad, dtype=acc_t)
+    for i, off in enumerate(mat.offsets):
+        acc = acc + mat.data[i].astype(acc_t) * xp[lo + off : lo + off + m_pad]
+    return acc[: mat.shape[0]]

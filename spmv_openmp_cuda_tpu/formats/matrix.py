@@ -1,14 +1,14 @@
-"""Sparse matrix core data model (COO / CSR / ELL), TPU-first.
+"""Sparse matrix core data model (COO / CSR / ELL).
 
 Capability analog of the reference's single `spmat` struct
 (reference: src/include/sparseMatrix.h:25-42, which packs CSR IRP/JA/AS, ELL
 MAX_ROW_NZ + padded slabs, optional RL row lengths, and CUDA pitches into one
 type). Here each format is its own host-side dataclass, plus device-side
-pytree containers shaped for TPU:
+pytree containers:
 
 - CSR device form carries an *expanded row-id vector* (one row id per nnz,
   padded to an aligned length with an out-of-range segment id) so row
-  reductions become segment-sums — the TPU replacement for IRP-driven scalar
+  reductions become segment-sums — the replacement for IRP-driven scalar
   loops.
 - ELL device form pads the slab width to a multiple of 128 lanes (the
   cudaMallocPitch analog, reference cudaUtils.cu:56-98) and optionally holds a
@@ -122,7 +122,7 @@ class CSRMatrix:
         return int(self.compute_row_lens().max(initial=0))
 
     def row_ids(self) -> np.ndarray:
-        """Expanded per-nnz row ids (segment ids for TPU reductions)."""
+        """Expanded per-nnz row ids (segment ids for device reductions)."""
         return np.repeat(
             np.arange(self.shape[0], dtype=np.int32), self.compute_row_lens()
         )
@@ -184,11 +184,11 @@ class ELLMatrix:
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class DeviceCSR:
-    """Device CSR: nnz-expanded arrays + aligned padding for TPU kernels.
+    """Device CSR: nnz-expanded arrays + aligned padding.
 
     `row_ids[k]` is the output row of nnz k; padded tail entries carry
     row_id == M (dropped by segment-sum with num_segments=M), col 0, val 0.
-    `indptr` is retained for block-partitioned (scalar-prefetch) kernels.
+    `indptr` is retained for block-partitioned kernels.
     """
 
     data: jax.Array  # (nnz_pad,) dtype
@@ -220,7 +220,7 @@ class DeviceELL:
     W_pad is max_row_nz rounded up to a LANE multiple; M_pad rounds rows to a
     SUBLANE multiple. Transposed layout (W_pad, M_pad) mirrors the reference's
     ellTranspose coalescing variant (sparseUtils.c:145-185) with rows on the
-    lane axis.
+    contiguous axis.
     """
 
     data: jax.Array  # (M_pad, W_pad) dtype
@@ -281,14 +281,12 @@ def device_ell(
     """Upload a host ELL to a lane-aligned device slab (spMatCpyELL analog,
     reference cudaUtils.cu:56-98; pitch == the aligned padded width).
 
-    Layout-dependent padding (XLA TPU tiles arrays (8, 128), so the minor dim
-    is physically padded to 128 and the second-minor to 8 regardless of
-    logical shape — align to what HBM will hold anyway):
-    - row-major (M, W): W -> multiple of 128 lanes, M -> multiple of 8.
-    - transposed (W, M): W -> multiple of 8 sublanes only, M -> multiple of
-      128. For narrow matrices (max_row_nz << 128) the transposed layout is
-      the one that avoids a large physical padding blowup — the TPU
-      counterpart of the reference's coalescing-motivated ellTranspose.
+    Layout-dependent padding to (SUBLANE, LANE) = (8, 128) multiples:
+    - row-major (M, W): W -> multiple of 128, M -> multiple of 8.
+    - transposed (W, M): W -> multiple of 8 only, M -> multiple of 128. For
+      narrow matrices (max_row_nz << 128) the transposed layout avoids a
+      large padding blowup, and consecutive rows are adjacent in memory —
+      the reference's coalescing-motivated ellTranspose.
     """
     assert not getattr(ell, "slab_transposed", False), (
         "pass the untransposed host ELL; device_ell transposes itself"

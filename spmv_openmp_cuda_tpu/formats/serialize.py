@@ -2,10 +2,9 @@
 
 The reference's closest analog is raw/text vector dumps for offline reuse
 (SURVEY.md section 5 checkpoint/resume, utils.c:135-168). Here the expensive
-artifact is the *prepared device format* (binning / diagonal extraction /
-Clos routing over hundred-million-nnz matrices — routing a power-law matrix
-costs seconds of host planning), so we serialize those to .npz and restore
-them without re-running preparation.
+artifact is the *prepared device format* (row binning / diagonal extraction
+over hundred-million-nnz matrices costs host seconds), so we serialize those
+to .npz and restore them without re-running preparation.
 """
 from __future__ import annotations
 
@@ -16,29 +15,13 @@ import jax.numpy as jnp
 import numpy as np
 
 from .binned import BinnedCSR
-from .dia import DeviceDIA, DeviceDIADF
-from .lanes import LanesSmall
+from .dia import DeviceDIA
 from .matrix import DeviceCSR, DeviceELL
-from .routed import RoutedCSR, RoutedDF
-from .window import WindowCSR
-from ..ops.route import PlannedPermutation
 
-PreparedFormat = Union[
-    BinnedCSR, DeviceDIA, DeviceDIADF, DeviceELL, DeviceCSR, LanesSmall,
-    RoutedCSR, RoutedDF, WindowCSR,
-]
+PreparedFormat = Union[BinnedCSR, DeviceDIA, DeviceELL, DeviceCSR]
 
 
 def save_prepared(path: str, mat) -> None:
-    with_plan = False
-    if (
-        isinstance(mat, tuple)
-        and len(mat) == 2
-        and isinstance(mat[0], (DeviceDIA, DeviceDIADF))
-    ):
-        # the Pallas DIA modes prepare a (DeviceDIA[DF], DiaPallasPlan)
-        # pair; the plan is all-static and cheap to re-derive on load
-        mat, with_plan = mat[0], True
     import jax
 
     leaves, _treedef = jax.tree_util.tree_flatten(mat)
@@ -46,23 +29,12 @@ def save_prepared(path: str, mat) -> None:
     # npz cannot hold ml_dtypes arrays: store bf16 as uint16 bit patterns
     bf16 = [i for i, a in enumerate(arrs) if a.dtype.name == "bfloat16"]
     arrs = [a.view(np.uint16) if i in bf16 else a for i, a in enumerate(arrs)]
-    aux = _aux_of(mat)
-    if with_plan:
-        aux["with_plan"] = True
-    meta = {"kind": type(mat).__name__, "aux": aux, "bf16": bf16}
+    meta = {"kind": type(mat).__name__, "aux": _aux_of(mat), "bf16": bf16}
     np.savez_compressed(
         path,
         __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
         **{f"leaf{i}": a for i, a in enumerate(arrs)},
     )
-
-
-def _perm_aux(p: PlannedPermutation) -> dict:
-    return {
-        "t": p.t,
-        "has_r1": p.r1 is not None,
-        "has_wc": p.wc is not None,
-    }
 
 
 def _aux_of(mat: PreparedFormat) -> dict:
@@ -74,12 +46,11 @@ def _aux_of(mat: PreparedFormat) -> dict:
             "shape": list(mat.shape),
             "nnz": mat.nnz,
         }
-    if isinstance(mat, (DeviceDIA, DeviceDIADF)):
+    if isinstance(mat, DeviceDIA):
         return {
             "offsets": list(mat.offsets),
             "shape": list(mat.shape),
             "nnz": mat.nnz,
-            "pad_sub": mat.pad_sub,
         }
     if isinstance(mat, DeviceELL):
         return {
@@ -90,54 +61,6 @@ def _aux_of(mat: PreparedFormat) -> dict:
         }
     if isinstance(mat, DeviceCSR):
         return {"shape": list(mat.shape), "nnz": mat.nnz}
-    if isinstance(mat, LanesSmall):
-        return {
-            "window_tiles": [list(wt) for wt in mat.window_tiles],
-            "shape": list(mat.shape),
-            "nnz": mat.nnz,
-            "n_groups": mat.n_groups,
-        }
-    if isinstance(mat, WindowCSR):
-        return {
-            "shape": list(mat.shape),
-            "nnz": mat.nnz,
-            "g": mat.g,
-            "k_pad": mat.k_pad,
-            "wr": mat.wr,
-            "nspecs": mat.nspecs,
-            "nblocks": mat.nblocks,
-            "k_c": mat.k_c,
-            "bps": mat.bps,
-            "xdirect": mat.xdirect,
-            "shared_w": mat.shared_w,
-        }
-    if isinstance(mat, RoutedCSR):
-        return {
-            "shape": list(mat.shape),
-            "nnz": mat.nnz,
-            "n_windows": mat.n_windows,
-            "rows_a": mat.rows_a,
-            "runs": [list(r) for r in mat.runs],
-            "lvl_runs": [[list(r) for r in rs] for rs in mat.lvl_runs],
-            "out_t": mat.out_t,
-            "perm_products": _perm_aux(mat.perm_products),
-            "lvl_perms": [_perm_aux(p) for p in mat.lvl_perms],
-            "perm_out": _perm_aux(mat.perm_out),
-            "n_lvl_masks": len(mat.lvl_masks),
-            "has_heavy": mat.hvals is not None,
-            "heavy_v2": mat.hlo is not None,
-            "has_hdense": mat.hdense is not None,
-            "heavy_rows": list(mat.heavy_rows),
-            "widx_t": list(mat.widx_t),
-            "heavy_lanes": list(mat.heavy_lanes),
-        }
-    if isinstance(mat, RoutedDF):
-        # leaves: mat's leaves, vals_lo, then the (hi, lo) heavy block
-        return {
-            "inner": _aux_of(mat.mat),
-            "has_hdense_df": mat.hdense_hi is not None,
-            "heavy_rows_df": list(mat.heavy_rows_df),
-        }
     raise TypeError(type(mat))
 
 
@@ -161,25 +84,6 @@ class _LeafReader:
         return out
 
 
-def _read_perm(r: _LeafReader, aux: dict) -> PlannedPermutation:
-    # leaf order = registered data_fields: r1, w1, w2, w3, r3, wc
-    # (None fields are skipped by tree_flatten; files predate wc ->
-    # defaults False). Round-2 files may carry a trailing w2s leaf
-    # (the removed fusemid staging index) — consumed and discarded.
-    has_wc = aux.get("has_wc", False)
-    has_w2s = aux.get("has_w2s", False)
-    n = 4 + bool(aux["has_r1"]) + bool(has_wc) + bool(has_w2s)
-    leaves = r.take(n)
-    r1 = leaves.pop(0) if aux["has_r1"] else None
-    if has_w2s:
-        leaves.pop()  # legacy fusemid staging index: discard
-    wc = leaves.pop() if has_wc else None
-    w1, w2, w3, r3 = leaves
-    return PlannedPermutation(
-        r1=r1, w1=w1, w2=w2, w3=w3, r3=r3, wc=wc, t=aux["t"]
-    )
-
-
 def load_prepared(path: str) -> PreparedFormat:
     z = np.load(path)
     meta = json.loads(bytes(z["__meta__"]).decode())
@@ -196,37 +100,12 @@ def load_prepared(path: str) -> PreparedFormat:
             nnz=aux["nnz"],
         )
     if kind == "DeviceDIA":
-        mat = DeviceDIA(
+        return DeviceDIA(
             *r.take(n_leaves),
             offsets=tuple(aux["offsets"]),
             shape=tuple(aux["shape"]),
             nnz=aux["nnz"],
-            # files saved before the 'pad' -> 'pad_sub' rename stored the
-            # element count; convert to sublane-rows
-            pad_sub=aux.get("pad_sub", -(-aux.get("pad", 0) // 128)),
         )
-        if aux.get("with_plan"):
-            from ..ops.spmv_pallas import pad_dia_for_pallas, plan_dia
-
-            plan = plan_dia(mat)
-            return (pad_dia_for_pallas(mat, plan), plan)
-        return mat
-    if kind == "DeviceDIADF":
-        mat = DeviceDIADF(
-            *r.take(n_leaves),
-            offsets=tuple(aux["offsets"]),
-            shape=tuple(aux["shape"]),
-            nnz=aux["nnz"],
-            pad_sub=aux["pad_sub"],
-        )
-        if aux.get("with_plan"):
-            from ..ops.spmv_pallas import (
-                DF_DIA_VMEM_BUDGET, pad_dia_df_for_pallas, plan_dia,
-            )
-
-            plan = plan_dia(mat.as_dia(), vmem_budget=DF_DIA_VMEM_BUDGET)
-            return (pad_dia_df_for_pallas(mat, plan), plan)
-        return mat
     if kind == "DeviceELL":
         return DeviceELL(
             *r.take(n_leaves),
@@ -237,85 +116,4 @@ def load_prepared(path: str) -> PreparedFormat:
         )
     if kind == "DeviceCSR":
         return DeviceCSR(*r.take(n_leaves), shape=tuple(aux["shape"]), nnz=aux["nnz"])
-    if kind == "LanesSmall":
-        return LanesSmall(
-            *r.take(n_leaves),
-            window_tiles=tuple(tuple(wt) for wt in aux["window_tiles"]),
-            shape=tuple(aux["shape"]),
-            nnz=aux["nnz"],
-            n_groups=aux["n_groups"],
-        )
-    if kind == "WindowCSR":
-        return WindowCSR(
-            *r.take(n_leaves),
-            shape=tuple(aux["shape"]),
-            nnz=aux["nnz"],
-            g=aux["g"],
-            k_pad=aux["k_pad"],
-            wr=aux["wr"],
-            nspecs=aux["nspecs"],
-            nblocks=aux["nblocks"],
-            # pre-mod-8 checkpoints carry no k_c: 0 = legacy global packing
-            k_c=aux.get("k_c", 0),
-            # pre-multiblock checkpoints ran one block per grid step
-            bps=aux.get("bps", 1),
-            xdirect=aux.get("xdirect", False),
-            # pre-shared_w checkpoints baked per-sub-block Q: keep False
-            shared_w=aux.get("shared_w", False),
-        )
-    if kind == "RoutedDF":
-        mat = _read_routed(r, aux["inner"])
-        (vals_lo,) = r.take(1)
-        hh = hl = None
-        if aux.get("has_hdense_df"):
-            hh, hl = r.take(2)
-        return RoutedDF(
-            mat=mat, vals_lo=vals_lo, hdense_hi=hh, hdense_lo=hl,
-            heavy_rows_df=tuple(aux.get("heavy_rows_df", ())),
-        )
-    if kind == "RoutedCSR":
-        return _read_routed(r, aux)
     raise ValueError(f"unknown kind {kind}")
-
-
-def _read_routed(r: _LeafReader, aux: dict) -> RoutedCSR:
-        # leaf order follows the registered dataclass data_fields:
-        # vals, pidx, widx, perm_products.*, lvl_perms.*, lvl_masks.*, perm_out.*
-        vals, pidx, widx = r.take(3)
-        perm_products = _read_perm(r, aux["perm_products"])
-        lvl_perms = tuple(_read_perm(r, pa) for pa in aux["lvl_perms"])
-        lvl_masks = tuple(r.take(aux["n_lvl_masks"]))
-        perm_out = _read_perm(r, aux["perm_out"])
-        hvals = hpidx = hwidx = hreduce = hlo = hhi = hdense = None
-        if aux.get("has_heavy"):
-            hvals, hpidx, hwidx, hreduce = r.take(4)
-            if aux.get("heavy_v2"):
-                hlo, hhi = r.take(2)
-        if aux.get("has_hdense"):
-            (hdense,) = r.take(1)
-        return RoutedCSR(
-            vals=vals,
-            pidx=pidx,
-            widx=widx,
-            hlo=hlo,
-            hhi=hhi,
-            hdense=hdense,
-            perm_products=perm_products,
-            lvl_perms=lvl_perms,
-            lvl_masks=lvl_masks,
-            perm_out=perm_out,
-            hvals=hvals,
-            hpidx=hpidx,
-            hwidx=hwidx,
-            hreduce=hreduce,
-            heavy_rows=tuple(aux.get("heavy_rows", ())),
-            widx_t=tuple(aux.get("widx_t", ())),
-            heavy_lanes=tuple(aux.get("heavy_lanes", ())),
-            shape=tuple(aux["shape"]),
-            nnz=aux["nnz"],
-            n_windows=aux["n_windows"],
-            rows_a=aux["rows_a"],
-            runs=tuple(tuple(x) for x in aux["runs"]),
-            lvl_runs=tuple(tuple(tuple(x) for x in rs) for rs in aux["lvl_runs"]),
-            out_t=aux["out_t"],
-        )

@@ -163,135 +163,3 @@ def coo_to_ell_native(coo: COOMatrix, max_entries=_CAP_DEFAULT) -> ELLMatrix:
     if rc != 0:
         raise ValueError(f"native COO->ELL failed: {_ERRORS.get(rc, rc)}")
     return ELLMatrix(coo.shape, ja, data, max_row_nz=w, nnz=coo.nnz, row_lens=rl)
-
-
-def color_bipartite_native(
-    left: np.ndarray, right: np.ndarray, n_colors: int
-) -> Optional[np.ndarray]:
-    """Edge-color a bipartite multigraph with the native Euler-split router
-    (planning core of ops/route.py). Returns None when the library is not
-    built (caller falls back to the numpy implementation)."""
-    lib = load_library()
-    if lib is None:
-        return None
-    if not hasattr(lib, "spmv_color_bipartite"):
-        return None
-    fn = lib.spmv_color_bipartite
-    fn.restype = ctypes.c_int
-    e = left.shape[0]
-    left = np.ascontiguousarray(left, dtype=np.int64)
-    right = np.ascontiguousarray(right, dtype=np.int64)
-    out = np.empty(e, dtype=np.int64)
-    bits = int(n_colors).bit_length() - 1
-    rc = fn(
-        ctypes.c_int64(e),
-        left.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        right.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        ctypes.c_int64(int(left.max()) + 1 if e else 1),
-        ctypes.c_int64(int(right.max()) + 1 if e else 1),
-        ctypes.c_int(bits),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-    )
-    if rc != 0:
-        return None
-    return out
-
-
-def window_scan_native(
-    rq: np.ndarray, lane: np.ndarray, q: np.ndarray, jres: np.ndarray,
-    g: int, nblocks: int,
-):
-    """Fused per-g window-prepare scan (formats/window.py): returns
-    (d_min, d_max, hl, hr) where hl/hr are the (nblocks, 8, 128) int32
-    per-(block, gid%8) lane/residue degree histograms. None when the
-    library is not built (caller falls back to the numpy passes)."""
-    lib = load_library()
-    if lib is None or not hasattr(lib, "spmv_window_scan"):
-        return None
-    fn = lib.spmv_window_scan
-    fn.restype = ctypes.c_int
-    nnz = rq.shape[0]
-    arrs = [np.ascontiguousarray(a, dtype=np.int64) for a in (rq, lane, q, jres)]
-    hl = np.empty((nblocks, 8, 128), dtype=np.int32)
-    hr = np.empty((nblocks, 8, 128), dtype=np.int32)
-    d_min = ctypes.c_int64()
-    d_max = ctypes.c_int64()
-    rc = fn(
-        ctypes.c_int64(nnz),
-        *(a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)) for a in arrs),
-        ctypes.c_int64(g),
-        ctypes.c_int64(nblocks),
-        ctypes.byref(d_min),
-        ctypes.byref(d_max),
-        hl.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        hr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-    )
-    if rc != 0:
-        return None
-    return int(d_min.value), int(d_max.value), hl, hr
-
-
-def rank_in_group_native(
-    key: np.ndarray, stride: int, nblocks: int
-) -> Optional[np.ndarray]:
-    """Stable rank within equal keys for keys whose key // stride prefix is
-    non-decreasing (CSR row order): O(n) threaded native pass replacing the
-    argsort in formats/window.py. None when the library is not built."""
-    lib = load_library()
-    if lib is None or not hasattr(lib, "spmv_rank_in_group"):
-        return None
-    fn = lib.spmv_rank_in_group
-    fn.restype = ctypes.c_int
-    key = np.ascontiguousarray(key, dtype=np.int64)
-    out = np.empty(key.shape[0], dtype=np.int64)
-    rc = fn(
-        ctypes.c_int64(key.shape[0]),
-        key.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        ctypes.c_int64(stride),
-        ctypes.c_int64(nblocks),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-    )
-    if rc != 0:
-        return None
-    return out
-
-
-def window_fill_native(
-    rq: np.ndarray, lane: np.ndarray, q: np.ndarray, jres: np.ndarray,
-    srow: np.ndarray, data: np.ndarray, g: int, k_pad: int, k_c: int,
-    n_ktiles: int, wr: int, bps: int, mode: int,
-    vals: np.ndarray, sidx: np.ndarray, gslab: np.ndarray, rsrc: np.ndarray,
-) -> bool:
-    """Fused slot-slab scatter + Q bake for prepare_window (one threaded
-    pass; packing guarantees distinct cells). mode: 0 standard, 1 xdirect,
-    2 shared_w. Returns False when the library is not built (caller runs
-    the numpy scatters)."""
-    lib = load_library()
-    if lib is None or not hasattr(lib, "spmv_window_fill"):
-        return False
-    fn = lib.spmv_window_fill
-    fn.restype = ctypes.c_int
-    arrs = [
-        np.ascontiguousarray(a, dtype=np.int64)
-        for a in (rq, lane, q, jres, srow)
-    ]
-    data = np.ascontiguousarray(data, dtype=np.float64)
-    assert vals.flags.c_contiguous and sidx.flags.c_contiguous
-    assert gslab.flags.c_contiguous and rsrc.flags.c_contiguous
-    rc = fn(
-        ctypes.c_int64(rq.shape[0]),
-        *(a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)) for a in arrs),
-        data.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        ctypes.c_int64(g),
-        ctypes.c_int64(k_pad),
-        ctypes.c_int64(k_c),
-        ctypes.c_int64(n_ktiles),
-        ctypes.c_int64(wr),
-        ctypes.c_int64(max(bps, 1)),
-        ctypes.c_int(mode),
-        vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        sidx.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
-        gslab.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
-        rsrc.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
-    )
-    return rc == 0

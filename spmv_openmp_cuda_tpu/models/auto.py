@@ -5,22 +5,15 @@ of them to find the winner (its report's central exercise). This model
 encodes those findings as a structure-driven selection policy — the analog of
 the reference's conclusions (relazione.tex: ELL wins when padding is bounded,
 CSR when rows are skewed, transposed layouts when coalescing pays) — over
-the engine ladder, in descending structural specialization:
+the registry's engines:
 
-- diagonal-concentrated -> DIA (zero-gather, no indices; fused Pallas
-  kernel at ~500 GB/s)
-- dense-diagonal core + scattered fringe -> DIA+windowed-residual hybrid
-  (the fringe rides windowed-gather slots inside the DIA kernel)
-- banded LOCALITY without banded structure (unstructured FEM), or any
-  matrix whose columns fit one ~15k window -> windowed local-gather
-  engine (edge-coloring slot packing, masked group reduce; measured cost
-  model picks the group size)
-- everything else -> Clos-routed CSR (panel gather + planned permutation +
-  width-binned reduces; fully general — tiny domains collapse to a single
-  fused kernel)
-- explicit formats remain available: lanes (lane-gather + masked group
-  accumulate), ell_t (transposed slabs) and binned (width-class slabs) —
-  the last two are the faithful reference-shaped layouts
+- diagonal-concentrated -> DIA (no indices, no gather)
+- everything else -> row-binned CSR (width-class slabs; on one H100 it is
+  the fastest or tied general engine on every proxy, bounded-padding FEM
+  and power-law graphs alike — PERF.md "Kernel decisions")
+- transposed ELL stays available as an explicit format
+
+The CLI's AUTO mode uses the same policy (AUTO_MODES).
 
 Usage:
     model = AutoSpMV.from_file("matrix.mtx")         # or from_coo / from_csr
@@ -36,70 +29,56 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import Config
-from ..formats.binned import binned_spmv, prepare_binned_csr
-from ..formats.convert import coo_to_csr
-from ..formats.dia import DiaFillError, prepare_dia
-from ..formats.lanes import LanesError, lanes_small_spmv, prepare_lanes_small
-from ..formats.matrix import COOMatrix, CSRMatrix, device_ell
-from ..formats.routed import RoutedError, prepare_routed_auto, routed_auto_spmv
-from ..ops.spmv_xla import ell_rows_transposed
+from ..formats.convert import EllSizeError, coo_to_csr, coo_to_ell, csr_to_coo
+from ..formats.dia import DiaFillError
+from ..formats.matrix import COOMatrix, CSRMatrix
+from ..ops import registry
+
+#: format -> registry mode; float64 runs the same modes natively
+AUTO_MODES = {
+    "dia": "DIA_ROWS",
+    "ell_t": "ELL_ROWS_T",
+    "binned": "CSR_ROWS_BINNED",
+}
 
 
 def select_format(csr: CSRMatrix, dia_fill_cap: float = 2.0) -> str:
-    """Pick a storage engine from matrix structure.
-
-    Heuristics (cheap, host-side):
-    - DIA if the distinct-diagonal count keeps fill under dia_fill_cap x nnz.
-    - Clos-routed CSR otherwise (fully general; single-kernel fast path for
-      tiny domains, measured ahead of the lane-gather engine there).
-    """
+    """Pick a storage engine from matrix structure (cheap, host-side):
+    DIA if the distinct-diagonal count keeps fill under dia_fill_cap x nnz,
+    row-binned CSR otherwise."""
     m, n = csr.shape
     nnz = max(csr.nnz, 1)
     # DIA needs distinct-offset count <= dia_fill_cap*nnz/m; for huge
     # matrices first reject cheaply from a sample (a sample undercounts
     # distinct offsets, so exceeding the cap on the sample is conclusive)
     max_offs = int(dia_fill_cap * nnz / max(m, 1))
-    sampled_reject = False
     if csr.nnz > 4_000_000:
         idx = np.linspace(0, csr.nnz - 1, 200_000).astype(np.int64)
         rows_s = np.searchsorted(csr.indptr, idx, side="right") - 1
-        sampled_reject = (
-            np.unique(csr.indices[idx] - rows_s).shape[0] > max_offs
-        )
-    if not sampled_reject:
-        offs, cnt = np.unique(
-            csr.indices - csr.row_ids(), return_counts=True
-        )
-        dense = int((cnt >= max(0.12 * m, 2)).sum())
-        # dense-diagonal core + scattered fringe (raefsky-class): the
-        # DIA+windowed-residual hybrid beats paying a full m_pad diagonal
-        # per straggler offset whenever the split sheds >= 25% of them
-        if dense < 0.75 * offs.shape[0]:
-            from ..formats.dia import split_offsets
+        if np.unique(csr.indices[idx] - rows_s).shape[0] > max_offs:
+            return "binned"
+    if np.unique(csr.indices - csr.row_ids()).shape[0] <= max_offs:
+        return "dia"
+    return "binned"
 
-            try:
-                split_offsets(csr)
-                return "dia_resid"
-            except DiaFillError:
-                pass
-        if offs.shape[0] <= max_offs:
-            return "dia"
-    # banded LOCALITY without banded structure (unstructured FEM): the
-    # windowed gather engine beats the routed pipeline (~50 ps/nnz on the
-    # Clos route) when its padded slot count stays low
-    from ..formats.window import WindowError, window_cost_scan
 
+def prepare_format(csr: CSRMatrix, fmt: str, cfg: Config):
+    """(format, registry spec, operands), falling back to row-binned CSR
+    when the structural guess trips a format's exact prepare-time cap."""
+    if fmt not in AUTO_MODES:
+        raise ValueError(
+            f"unknown format {fmt!r}; expected auto or one of "
+            f"{', '.join(AUTO_MODES)}"
+        )
+    spec = registry.get(AUTO_MODES[fmt])
     try:
-        best = window_cost_scan(csr)
-    except WindowError:
-        best = None
-    # routed bar: ~50 ps/nnz of routing work plus a fixed multi-kernel
-    # pipeline dispatch cost (~10 us) — window_cost carries its own fixed
-    # terms (_C_BLOCK per step, the x pad chain), so the comparison must
-    # charge both sides' constants, not just window's
-    if best is not None and best < 50.0 * nnz + 10e6:
-        return "window"
-    return "routed"
+        ell = None
+        if spec.fmt == "ell":
+            ell = coo_to_ell(csr_to_coo(csr), max_entries=cfg.ell_max_entries)
+        return fmt, spec, spec.prepare(csr, ell, cfg)
+    except (DiaFillError, EllSizeError):
+        spec = registry.get(AUTO_MODES["binned"])
+        return "binned", spec, spec.prepare(csr, None, cfg)
 
 
 @dataclasses.dataclass
@@ -112,6 +91,7 @@ class AutoSpMV:
     _fn: Callable
     _operands: object
     dtype: str = "float32"
+    mode: str = ""
 
     @classmethod
     def from_csr(
@@ -122,109 +102,8 @@ class AutoSpMV:
     ) -> "AutoSpMV":
         cfg = cfg or Config()
         fmt = select_format(csr) if format == "auto" else format
-        # float64 rides the double-float Pallas engines (ops/dfloat.py)
-        # for every structure class: DIA / DIA+residual / window / routed
-        # all have df variants; only the explicit lanes format falls back
-        # to the XLA f64 binned path
-        f64 = cfg.dtype == "float64"
-        if f64 and fmt == "lanes":
-            fmt = "binned"
-        if fmt == "dia_resid":
-            from ..ops.spmv_pallas import (
-                dia_spmv_pallas,
-                dia_spmv_pallas_df,
-                prepare_dia_resid,
-            )
-
-            try:
-                if f64:
-                    # double-float hybrid (ops/dfloat.py)
-                    ops = prepare_dia_resid(csr, df=True)
-                    run = lambda o, x: dia_spmv_pallas_df(
-                        o[0].mat, x, o[1], resid=o[0]
-                    )
-                else:
-                    ops = prepare_dia_resid(csr, dtype=cfg.jnp_dtype)
-                    run = lambda o, x: dia_spmv_pallas(
-                        o[0].mat, x, o[1], resid=o[0]
-                    )
-            except DiaFillError:
-                fmt = "routed"  # general fallback (df-routed under f64)
-        if fmt == "window":
-            from ..formats.window import WindowError, prepare_window_auto, window_spmv
-
-            try:
-                # f64: the double-float window engine (ops/dfloat.py)
-                ops = prepare_window_auto(
-                    csr, dtype=jnp.float32 if f64 else cfg.jnp_dtype, df=f64
-                )
-                run = window_spmv
-            except WindowError:
-                fmt = "routed"  # general fallback (df-routed under f64)
-        if fmt == "dia":
-            from ..ops.spmv_pallas import (
-                dia_spmv_pallas,
-                dia_spmv_pallas_df,
-                pad_dia_for_pallas,
-                plan_dia,
-                prepare_dia_df_pallas,
-            )
-
-            try:
-                if f64:
-                    # double semantics ride the double-float Pallas kernel
-                    # (ops/dfloat.py) — the XLA-f64 DIA path hits
-                    # pathological compiles on wide bands and runs ~0.1
-                    # GFLOP/s on this backend
-                    ops = prepare_dia_df_pallas(csr)
-                    run = lambda o, x: dia_spmv_pallas_df(o[0], x, o[1])
-                else:
-                    mat = prepare_dia(csr, dtype=cfg.jnp_dtype)
-                    plan = plan_dia(mat)
-                    ops = (pad_dia_for_pallas(mat, plan), plan)
-                    run = lambda o, x: dia_spmv_pallas(o[0], x, o[1])
-            except DiaFillError:
-                fmt = "routed"  # general fallback (df-routed under f64)
-        if fmt == "lanes":
-            try:
-                ops = prepare_lanes_small(csr, dtype=cfg.jnp_dtype)
-                run = lanes_small_spmv
-            except LanesError:
-                fmt = "routed"
-        if fmt == "routed":
-            try:
-                if f64:
-                    from ..formats.routed import (
-                        prepare_routed_df_auto,
-                        routed_df_auto_spmv,
-                    )
-
-                    ops = prepare_routed_df_auto(csr)
-                    run = routed_df_auto_spmv
-                else:
-                    ops = prepare_routed_auto(csr, dtype=cfg.jnp_dtype)
-                    run = routed_auto_spmv
-            except RoutedError:
-                fmt = "binned"
-        if fmt == "ell_t":
-            from ..formats.convert import csr_to_coo, coo_to_ell, EllSizeError
-
-            try:
-                ell = coo_to_ell(csr_to_coo(csr), max_entries=cfg.ell_max_entries)
-                ops = device_ell(ell, dtype=cfg.jnp_dtype, transposed=True)
-                run = lambda mat, x: ell_rows_transposed(mat, x)
-            except EllSizeError:
-                fmt = "binned"
-        if fmt == "binned":
-            ops = prepare_binned_csr(csr, dtype=cfg.jnp_dtype)
-            run = binned_spmv
-        try:
-            jitted = jax.jit(run)
-        except UnboundLocalError:
-            raise ValueError(
-                f"unknown format {format!r}; expected auto, dia, window, "
-                "lanes, routed, ell_t or binned"
-            ) from None
+        fmt, spec, ops = prepare_format(csr, fmt, cfg)
+        jitted = jax.jit(spec.run)
         m = csr.shape[0]
 
         def fn(x):
@@ -237,6 +116,7 @@ class AutoSpMV:
             _fn=fn,
             _operands=ops,
             dtype=cfg.dtype,
+            mode=spec.name,
         )
 
     @classmethod

@@ -2,12 +2,11 @@
 
 The reference suite stops at the SpMV kernel benchmark; these cover how
 SpMV is consumed in production (Krylov / power iterations) and prove the
-property a TPU-native design must have: a prepared format is a JAX
+property an accelerator design must have: a prepared format is a JAX
 pytree, so an entire solve — matvec included — traces into ONE compiled
 XLA program with `lax.while_loop` / `lax.fori_loop` control flow, static
 shapes throughout, and zero host round trips per iteration. Works with
-any engine `AutoSpMV` selects (DIA / DIA+residual / window / routed) and
-with the double-float f64 paths.
+any engine `AutoSpMV` selects, in float32 or float64.
 
 No reference-file counterpart (capability beyond the reference's scope);
 the compiled-control-flow requirement is SURVEY.md's XLA-semantics rule.

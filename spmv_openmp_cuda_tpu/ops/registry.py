@@ -40,12 +40,11 @@ class KernelSpec:
 
     name: str  # compute-mode string (CLI + harness id)
     fmt: str  # "csr" | "ell" — which host format it needs
-    impl: str  # "xla" | "pallas" | "host"
+    impl: str  # "xla": every registered engine compiles through XLA
     prepare: Callable  # (csr, ell, cfg) -> operands
     run: Callable  # (operands, x) -> y ; jittable
     doc: str = ""
-    f64: bool = False  # True: carries double-precision semantics (either
-    # native XLA f64 or a double-float Pallas engine, ops/dfloat.py)
+    f64: bool = True  # accepts float64 (False: a bf16-storage mode)
 
     def jitted(self, operands):
         """Return a jitted closure over prepared operands."""
@@ -231,7 +230,7 @@ def _register_xla(cfg_defaults: Config = Config()) -> None:
             impl="xla",
             prepare=_prep_ell_t,
             run=lambda mat, x: spmv_xla.ell_rows_transposed(mat, x),
-            doc="transposed-slab ELL, rows on the lane axis — coalescing "
+            doc="transposed-slab ELL, rows on the contiguous axis — coalescing "
             "analog (cudaSpMVRowsELL + ellTranspose, SpMV_CUDA.cu:79-96)",
         )
     )
@@ -261,10 +260,10 @@ def _register_xla(cfg_defaults: Config = Config()) -> None:
     )
 
 
-def _register_tpu_formats() -> None:
-    """TPU-first storage engines beyond the reference's CSR/ELL pair: the
-    row-binned jagged-ELL ("binned CSR", scatter-free CSR economics) and the
-    DIA zero-gather path for diagonal-concentrated matrices."""
+def _register_storage_formats() -> None:
+    """Storage engines beyond the reference's CSR/ELL pair: the row-binned
+    jagged-ELL ("binned CSR") and the DIA zero-gather path for
+    diagonal-concentrated matrices."""
     from ..formats.binned import binned_spmv, prepare_binned_csr
     from ..formats.dia import dia_spmv, prepare_dia
 
@@ -276,7 +275,7 @@ def _register_tpu_formats() -> None:
             prepare=lambda csr, ell, cfg: prepare_binned_csr(csr, dtype=cfg.jnp_dtype),
             run=binned_spmv,
             doc="row-binned width-class slabs — CSR memory economics with "
-            "dense lane-parallel reduces; the dynamic-scheduling/row-binning "
+            "dense per-class reduces; the dynamic-scheduling/row-binning "
             "analog (ompChunksDivide.h) as a storage transform",
         )
     )
@@ -292,19 +291,19 @@ def _register_tpu_formats() -> None:
             "DiaFillError beyond a 3x padding budget, the ELL-cap analog)",
         )
     )
+    register(
+        KernelSpec(
+            name="DIA_BF16",
+            fmt="csr",
+            impl="xla",
+            prepare=lambda csr, ell, cfg: prepare_dia(csr, dtype=jnp.bfloat16),
+            run=dia_spmv,
+            doc="DIA_ROWS with a bf16 slab (f32 accumulate): half the slab "
+            "bytes on the bandwidth-bound banded path",
+            f64=False,
+        )
+    )
 
 
 _register_xla()
-_register_tpu_formats()
-
-
-def register_pallas_kernels() -> None:
-    """Import + register the Pallas kernel family (separate module so CPU-only
-    environments can still use the XLA family)."""
-    from . import spmv_pallas  # noqa: F401  (registers on import)
-
-
-try:  # Pallas kernels register themselves when available
-    register_pallas_kernels()
-except ImportError:
-    pass
+_register_storage_formats()

@@ -1,6 +1,6 @@
 """XLA-lowered SpMV kernels (gather + segment reductions).
 
-These are the TPU-idiomatic re-designs of the reference's OpenMP strategy
+These are the XLA re-designs of the reference's OpenMP strategy
 matrix (SURVEY.md section 2.4): instead of IRP-driven scalar loops
 (reference src/SpMV_CSR_OMP.c) or padded-slab row loops (src/SpMV_ELL_OMP.c),
 CSR becomes a fused dense-vector gather + sorted segment-sum, and ELL becomes
@@ -169,8 +169,7 @@ def ell_rows(
 
     Lane-vectorized gather of x at the (M, W) column slab, multiply by the
     value slab, reduce along W. row_lens=True masks padding explicitly (the
-    ROWLENS early-exit analog — on TPU the win comes from the Pallas variant
-    that skips whole width-chunks; here the mask guards against padding
+    ROWLENS early-exit analog; here the mask guards against padding
     artifacts when slabs hold non-zero filler).
     """
     m = mat.shape[0]
@@ -240,9 +239,10 @@ def ell_rows_transposed(
     SpMV_CUDA.cu:79-96, which pre-transposes for coalescing —
     sparseUtils.c:145-185).
 
-    On TPU the transposed layout puts output rows on the 128-lane axis, so the
-    reduction over W runs down sublanes with unit-stride lane access — the
-    memory-coalescing analog. Requires mat.transposed=True.
+    The transposed layout puts consecutive output rows next to each other,
+    so each step of the reduction over W reads values, columns and x
+    gathers for adjacent rows together — the memory-coalescing analog.
+    Requires mat.transposed=True.
     """
     assert mat.transposed, "ell_rows_transposed needs a transposed DeviceELL"
     m = mat.shape[0]

@@ -1,11 +1,13 @@
 """Device mesh construction + multi-host initialization.
 
 The reference has no distributed backend (SURVEY.md section 5: parallelism is
-OMP shared memory + single-GPU PCIe copies); this module provides the
-TPU-native layer the build plan adds: jax.distributed init and
-jax.sharding.Mesh over ICI/DCN, with axes
+OMP shared memory + single-GPU PCIe copies); this module provides the layer
+the build plan adds: jax.distributed init and a jax.sharding.Mesh with axes
   "rows" — output-row data parallelism (the row-block OMP/CUDA analogs)
   "cols" — contraction-axis parallelism (the 2D-tiles partial-sum analog).
+The GPUs of one host are joined all to all by NVLink, so the mesh shape
+follows the algorithm alone: (n, 1) for row sharding, (1, n) or (2, 2) for
+contraction sharding.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Initialize jax.distributed for multi-host pods (no-op single-process)."""
+    """Initialize jax.distributed for multi-process runs (no-op for one
+    process, which drives every GPU of its host)."""
     if num_processes is None or num_processes <= 1:
         return
     jax.distributed.initialize(

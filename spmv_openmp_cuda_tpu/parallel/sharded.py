@@ -1,27 +1,30 @@
 """Multi-device sharded SpMV (shard_map + collectives over a Mesh).
 
-TPU-native replacement for what the reference does with OMP shared memory and
+Replacement for what the reference does with OMP shared memory and
 single-GPU transfers (SURVEY.md section 5 "distributed communication
 backend"): the row-block kernels become row-sharded data parallelism, the 2D
 tile kernels become contraction-axis sharding with psum of partials, and the
 dense-vector access becomes an explicit halo/ring exchange (ppermute)
 overlapped with local tile compute — the pattern BASELINE.json's north star
-prescribes.
+prescribes. XLA hands the collectives to NCCL on GPUs.
 
-Three designs, in increasing scalability:
+Four designs:
 - ell_rows_sharded: rows sharded, x replicated (DP analog; one all-gather of
   x amortized at input placement).
 - csr_cols_psum: columns sharded, partial y psum'd (spmvTilesCSR/Allocd
-  analog: the partial-sum reduction rides ICI instead of a serial loop).
+  analog: the partial-sum reduction is a collective instead of a serial
+  loop).
 - ell_ring: rows AND x sharded; the x shard ring-rotates via ppermute while
   each step multiplies the matching local column stripe — nothing
   replicated, the multi-host scaling path. Comm/compute overlap is
   DEPENDENCY-LEVEL: each step's multiply consumes the pre-permute chunk, so
   the collective carries no data dependence on the multiply and XLA's
   latency-hiding scheduler may split it into async start/done around the
-  compute (scripts/audit_ring_overlap.py asserts the dependency structure;
-  the actual async split is a TPU-scheduler decision not observable on the
+  compute (tests/test_sharded.py asserts the dependency structure; the
+  actual async split is the GPU scheduler's decision, not observable on the
   CPU mesh).
+- dia_sharded: the diagonal slab and x row-sharded, the shift reach moved
+  by a one-step ppermute halo.
 """
 from __future__ import annotations
 
@@ -298,9 +301,9 @@ def make_ell_ring(mesh: Mesh, op_meta: RingELL):
     Step s on device i: partial += stripe[(i - s) mod D] @ x_chunk, then
     ppermute the chunk to device (i+1) mod D. The multiply and the ppermute
     both read the carried chunk and neither depends on the other within a
-    step (audited: scripts/audit_ring_overlap.py), so an async-collective
+    step (audited in tests/test_sharded.py), so an async-collective
     scheduler can overlap them; on hardware the split into
-    collective-permute-start/done is the TPU scheduler's call.
+    collective-permute-start/done is XLA's scheduler's call.
     """
     d, m_loc, w_s = op_meta.d, op_meta.m_loc, op_meta.w_s
     perm = [(i, (i + 1) % d) for i in range(d)]
@@ -346,97 +349,100 @@ def pad_x_for_ring(x: np.ndarray, op: RingELL, mesh: Mesh, dtype):
 
 
 # ---------------------------------------------------------------------------
-# 4) Row-sharded DIA with ppermute halo exchange — the banded flagship path
+# 4) Row-sharded DIA with ppermute halo exchange — the banded path
 # ---------------------------------------------------------------------------
 
 
 @functools.partial(
     jax.tree_util.register_dataclass,
     data_fields=["data"],
-    meta_fields=["offsets", "shape", "nnz", "pad_sub", "s_local"],
+    meta_fields=["offsets", "shape", "nnz", "s_local"],
 )
 @dataclasses.dataclass
 class ShardedDIA:
     """Diagonal slab row-sharded over the mesh; x is row-sharded too and the
-    shift reach (pad_sub sublane-rows) crosses shard boundaries via a
-    one-step ppermute halo exchange — the halo/ring north star of SURVEY.md
-    section 5 applied to the banded engine.
+    shift reach (pad_lo rows back, pad_hi ahead) crosses shard boundaries
+    via a one-step ppermute halo exchange.
 
     Out-of-range x at the global edges is covered by the format invariant
     that diagonal data is zero wherever i + offset falls outside the matrix,
-    so wrap-around halo junk multiplies zero coefficients.
+    so wrap-around halo values multiply zero coefficients.
     """
 
-    data: jax.Array  # (D, S_pad, LANE) sharded P(None, rows, None)
+    data: jax.Array  # (D, nd * s_local) sharded P(None, rows)
     offsets: Tuple[int, ...]
     shape: Tuple[int, int] = (0, 0)
     nnz: int = 0
-    pad_sub: int = 0
     s_local: int = 0
+
+    @property
+    def pad_lo(self) -> int:
+        return max(0, -self.offsets[0])
+
+    @property
+    def pad_hi(self) -> int:
+        return max(0, self.offsets[-1])
 
 
 def prepare_dia_sharded(mat, mesh: Mesh) -> ShardedDIA:
-    """Shard a DeviceDIA's sublane-row axis across mesh[ROWS]."""
+    """Shard a DeviceDIA's row axis across mesh[ROWS]."""
     nd = mesh.shape[ROWS]
-    d, s, _ = mat.data.shape
-    s_pad = _ceil_to(max(s, nd * SUBLANE), nd * SUBLANE)
-    s_local = s_pad // nd
-    if mat.pad_sub > s_local:
+    d, m_pad = mat.data.shape
+    total = _ceil_to(max(m_pad, mat.shape[1], nd * LANE), nd * LANE)
+    s_local = total // nd
+    if max(mat.pad_lo, mat.pad_hi) > s_local:
         raise ValueError(
-            f"diagonal reach {mat.pad_sub} rows exceeds local shard {s_local}"
+            f"diagonal reach {max(mat.pad_lo, mat.pad_hi)} rows exceeds "
+            f"local shard {s_local}"
         )
-    data = jnp.pad(mat.data, ((0, 0), (0, s_pad - s), (0, 0)))
-    sh = NamedSharding(mesh, P(None, ROWS, None))
+    data = jnp.pad(mat.data, ((0, 0), (0, total - m_pad)))
     return ShardedDIA(
-        data=jax.device_put(data, sh),
+        data=jax.device_put(data, NamedSharding(mesh, P(None, ROWS))),
         offsets=mat.offsets,
         shape=mat.shape,
         nnz=mat.nnz,
-        pad_sub=mat.pad_sub,
         s_local=s_local,
     )
 
 
 def pad_x_for_dia_sharded(x, op: ShardedDIA, mesh: Mesh, dtype):
-    """x -> (S_pad, LANE) sublane-row layout, row-sharded."""
-    nd = mesh.shape[ROWS]
-    s_pad = op.s_local * nd
-    xp = jnp.pad(jnp.asarray(x, dtype), (0, s_pad * LANE - x.shape[0]))
-    return jax.device_put(
-        xp.reshape(s_pad, LANE), NamedSharding(mesh, P(ROWS, None))
-    )
+    """x -> zero-padded to the sharded row count, row-sharded."""
+    total = op.s_local * mesh.shape[ROWS]
+    xp = jnp.pad(jnp.asarray(x, dtype), (0, total - x.shape[0]))
+    return jax.device_put(xp, NamedSharding(mesh, P(ROWS)))
 
 
 def make_dia_sharded(mesh: Mesh, op_meta: ShardedDIA):
     """y = A @ x, both row-sharded; halo via one ppermute per direction."""
-    from ..formats.dia import shifted_view
-
     nd = mesh.shape[ROWS]
-    ps = op_meta.pad_sub
+    lo, hi = op_meta.pad_lo, op_meta.pad_hi
     offsets = op_meta.offsets
     s_local = op_meta.s_local
 
     def local(data, x_loc):
-        # left halo: my x rows [-ps:] go to my right neighbor; I receive my
-        # left neighbor's tail (device 0 receives wrap junk, masked by the
-        # zero diagonal coefficients at the global edge)
-        left = jax.lax.ppermute(
-            x_loc[-ps:], ROWS, [(j, (j + 1) % nd) for j in range(nd)]
-        )
-        right = jax.lax.ppermute(
-            x_loc[:ps], ROWS, [(j, (j - 1) % nd) for j in range(nd)]
-        )
-        xp = jnp.concatenate([left, x_loc, right], axis=0)
-        acc = jnp.zeros((s_local, LANE), data.dtype)
+        # left halo: my last lo entries go to my right neighbor, so I
+        # receive my left neighbor's tail (device 0 receives wrap-around
+        # values, masked by the zero coefficients at the global edge)
+        parts = [x_loc]
+        if lo:
+            parts.insert(0, jax.lax.ppermute(
+                x_loc[-lo:], ROWS, [(j, (j + 1) % nd) for j in range(nd)]
+            ))
+        if hi:
+            parts.append(jax.lax.ppermute(
+                x_loc[:hi], ROWS, [(j, (j - 1) % nd) for j in range(nd)]
+            ))
+        xp = jnp.concatenate(parts)
+        acc = jnp.zeros(s_local, data.dtype)
         for k, off in enumerate(offsets):
-            acc = acc + data[k] * shifted_view(xp, off, s_local, ps)
+            acc = acc + data[k] * xp[lo + off : lo + off + s_local]
         return acc
 
     f = shard_map(
         local,
         mesh=mesh,
-        in_specs=(P(None, ROWS, None), P(ROWS, None)),
-        out_specs=P(ROWS, None),
+        in_specs=(P(None, ROWS), P(ROWS)),
+        out_specs=P(ROWS),
     )
 
     @jax.jit
@@ -444,344 +450,3 @@ def make_dia_sharded(mesh: Mesh, op_meta: ShardedDIA):
         return f(op.data, x_padded)
 
     return spmv
-
-
-# ---------------------------------------------------------------------------
-# 4b) Row-sharded DOUBLE-FLOAT DIA with halo exchange — the reference's
-# native double precision (macros.h:63-76) carried multi-device: both (hi,
-# lo) f32 slab planes are row-sharded, both x planes halo-exchange, and the
-# per-diagonal accumulation runs the Dekker/Knuth compensated arithmetic
-# (ops/dfloat.py) at the XLA level — f64 semantics with no f64 datapath on
-# any chip of the mesh.
-# ---------------------------------------------------------------------------
-
-
-@functools.partial(
-    jax.tree_util.register_dataclass,
-    data_fields=["data", "data_lo"],
-    meta_fields=["offsets", "shape", "nnz", "pad_sub", "s_local"],
-)
-@dataclasses.dataclass
-class ShardedDIADF:
-    """ShardedDIA twin carrying the (hi, lo) double-float slab pair."""
-
-    data: jax.Array  # (D, S_pad, LANE) f32 hi words, P(None, rows, None)
-    data_lo: jax.Array  # (D, S_pad, LANE) f32 lo words, same sharding
-    offsets: Tuple[int, ...]
-    shape: Tuple[int, int] = (0, 0)
-    nnz: int = 0
-    pad_sub: int = 0
-    s_local: int = 0
-
-
-def prepare_dia_sharded_df(mat, mesh: Mesh) -> ShardedDIADF:
-    """Shard a DeviceDIADF's sublane-row axis across mesh[ROWS]."""
-    nd = mesh.shape[ROWS]
-    d, s, _ = mat.data.shape
-    s_pad = _ceil_to(max(s, nd * SUBLANE), nd * SUBLANE)
-    s_local = s_pad // nd
-    if mat.pad_sub > s_local:
-        raise ValueError(
-            f"diagonal reach {mat.pad_sub} rows exceeds local shard {s_local}"
-        )
-    sh = NamedSharding(mesh, P(None, ROWS, None))
-    pad = ((0, 0), (0, s_pad - s), (0, 0))
-    return ShardedDIADF(
-        data=jax.device_put(jnp.pad(mat.data, pad), sh),
-        data_lo=jax.device_put(jnp.pad(mat.data_lo, pad), sh),
-        offsets=mat.offsets,
-        shape=mat.shape,
-        nnz=mat.nnz,
-        pad_sub=mat.pad_sub,
-        s_local=s_local,
-    )
-
-
-def pad_x_for_dia_sharded_df(x, op: ShardedDIADF, mesh: Mesh):
-    """f64 x -> row-sharded (hi, lo) f32 plane pair."""
-    from ..ops.dfloat import split_f64
-
-    nd = mesh.shape[ROWS]
-    s_pad = op.s_local * nd
-    xp = np.zeros(s_pad * LANE, dtype=np.float64)
-    xp[: x.shape[0]] = np.asarray(x, np.float64)
-    xh, xl = split_f64(xp)
-    sh = NamedSharding(mesh, P(ROWS, None))
-    return (
-        jax.device_put(jnp.asarray(xh).reshape(s_pad, LANE), sh),
-        jax.device_put(jnp.asarray(xl).reshape(s_pad, LANE), sh),
-    )
-
-
-def make_dia_sharded_df(mesh: Mesh, op_meta: ShardedDIADF):
-    """(y_hi, y_lo) = A @ x in double-float, row-sharded with halo."""
-    from ..formats.dia import shifted_view
-    from ..ops.dfloat import two_prod, two_sum
-
-    nd = mesh.shape[ROWS]
-    ps = op_meta.pad_sub
-    offsets = op_meta.offsets
-    s_local = op_meta.s_local
-
-    def _halo(x_loc):
-        left = jax.lax.ppermute(
-            x_loc[-ps:], ROWS, [(j, (j + 1) % nd) for j in range(nd)]
-        )
-        right = jax.lax.ppermute(
-            x_loc[:ps], ROWS, [(j, (j - 1) % nd) for j in range(nd)]
-        )
-        return jnp.concatenate([left, x_loc, right], axis=0)
-
-    def local(dh, dl, xh_loc, xl_loc):
-        xh = _halo(xh_loc)
-        xl = _halo(xl_loc)
-        acc_h = jnp.zeros((s_local, LANE), jnp.float32)
-        acc_l = jnp.zeros((s_local, LANE), jnp.float32)
-        for k, off in enumerate(offsets):
-            vh = shifted_view(xh, off, s_local, ps)
-            vl = shifted_view(xl, off, s_local, ps)
-            ph, pe = two_prod(dh[k], vh)
-            plo = pe + (dh[k] * vl + dl[k] * vh)
-            acc_h, e = two_sum(acc_h, ph)
-            acc_l = acc_l + (plo + e)
-        return acc_h, acc_l
-
-    f = shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(
-            P(None, ROWS, None), P(None, ROWS, None),
-            P(ROWS, None), P(ROWS, None),
-        ),
-        out_specs=(P(ROWS, None), P(ROWS, None)),
-    )
-
-    @jax.jit
-    def spmv(op: ShardedDIADF, xh_padded, xl_padded):
-        return f(op.data, op.data_lo, xh_padded, xl_padded)
-
-    return spmv
-
-
-# ---------------------------------------------------------------------------
-# 5) Row-sharded windowed local-gather engine — block-DP + halo exchange
-# ---------------------------------------------------------------------------
-
-
-@functools.partial(
-    jax.tree_util.register_dataclass,
-    data_fields=["vals", "sidx", "gid", "rsrc"],
-    meta_fields=[
-        "shape", "nnz", "g", "k_pad", "wr", "nspecs", "nb_local", "nd",
-        "k_c",
-    ],
-)
-@dataclasses.dataclass
-class ShardedWindow:
-    """WindowCSR block arrays row-sharded over mesh[ROWS]; x is row-sharded
-    too, with each device pulling its window reach (wr chunk-rows plus
-    staging slack) from its neighbors via one ppermute per direction — the
-    halo pattern of the DIA path applied to the windowed-gather flagship.
-
-    Wrap-around halo junk at the global edges multiplies zero slot values
-    (no nnz references window rows outside the matrix), so no masking is
-    needed."""
-
-    vals: jax.Array  # (nd*nb_local*k_pad, 128) P(ROWS, None)
-    sidx: jax.Array
-    gid: jax.Array
-    rsrc: jax.Array  # (nd*nb_local*n_ktiles*128, 128) P(ROWS, None)
-    shape: Tuple[int, int] = (0, 0)
-    nnz: int = 0
-    g: int = 8
-    k_pad: int = 16
-    wr: int = 1
-    nspecs: int = 2
-    nb_local: int = 1
-    nd: int = 1
-    k_c: int = 0
-
-
-def prepare_window_sharded(csr: CSRMatrix, mesh: Mesh, dtype=jnp.float32):
-    """Prepare + shard the windowed engine's block arrays over mesh[ROWS]."""
-    from ..formats.window import prepare_window_auto
-
-    import math
-
-    nd = mesh.shape[ROWS]
-    # xdirect bakes Q without the wr shift; the halo layout below needs
-    # the standard staged-window baking. bps pinned to 1: the local kernel
-    # call below runs block-at-a-time, and shared_w (union-relative Q
-    # baking, auto-on for bps > 1) would not match it
-    mat = prepare_window_auto(csr, dtype=dtype, xdirect=False, bps=1)
-    # every shard must start at an 8-row x boundary (the kernel's staging
-    # remainder (i*g) % 8 is baked into the Q data with GLOBAL block
-    # indices): make nb_local * g divisible by 8
-    c = 8 // math.gcd(mat.g, 8)
-    nb_pad = _ceil_to(mat.nblocks, nd * c)
-    ntk = mat.n_ktiles
-
-    def _pad_blocks(a, rows_per_block):
-        pad = (nb_pad - mat.nblocks) * rows_per_block
-        return jnp.pad(a, ((0, pad), (0, 0)))
-
-    sh = NamedSharding(mesh, P(ROWS, None))
-    return ShardedWindow(
-        vals=jax.device_put(_pad_blocks(mat.vals, mat.k_pad), sh),
-        sidx=jax.device_put(_pad_blocks(mat.sidx, mat.k_pad), sh),
-        gid=jax.device_put(_pad_blocks(mat.gid, mat.k_pad), sh),
-        rsrc=jax.device_put(_pad_blocks(mat.rsrc, ntk * LANE), sh),
-        shape=mat.shape,
-        nnz=mat.nnz,
-        g=mat.g,
-        k_pad=mat.k_pad,
-        wr=mat.wr,
-        nspecs=mat.nspecs,
-        nb_local=nb_pad // nd,
-        nd=nd,
-        k_c=mat.k_c,
-    )
-
-
-def pad_x_for_window_sharded(x, op: ShardedWindow, mesh: Mesh, dtype):
-    """x -> (nd*nb_local*g, 128) chunk-row layout, row-sharded (each device
-    holds exactly its own blocks' x rows; halos move at run time)."""
-    rows = op.nd * op.nb_local * op.g
-    xp = jnp.pad(jnp.asarray(x, dtype), (0, rows * LANE - x.shape[0]))
-    return jax.device_put(
-        xp.reshape(rows, LANE), NamedSharding(mesh, P(ROWS, None))
-    )
-
-
-def make_window_sharded(mesh: Mesh, op_meta: ShardedWindow):
-    """y = A @ x with blocks and x row-sharded; window reach via ppermute."""
-    from ..formats.window import window_kernel_call, window_x_rows
-
-    nd = op_meta.nd
-    g, k_pad, wr, nspecs = (
-        op_meta.g, op_meta.k_pad, op_meta.wr, op_meta.nspecs,
-    )
-    nb_local = op_meta.nb_local
-    g_pad = max(-(-g // 8) * 8, 8)
-    total_loc = window_x_rows(nb_local, g, nspecs)
-    own = nb_local * g
-    h_right = total_loc - wr - own  # staging slack rows past the own range
-    # one-step halo only reaches the immediate neighbors; tiny shards whose
-    # window outreaches them fall back to an all-gather of x (still
-    # row-sharded compute — the DP-with-replicated-x regime)
-    halo_ok = h_right <= own and wr <= own
-
-    def local(vals, sidx, gid, rsrc, x_loc):
-        if halo_ok:
-            left = jax.lax.ppermute(
-                x_loc[-wr:], ROWS, [(j, (j + 1) % nd) for j in range(nd)]
-            )
-            right = jax.lax.ppermute(
-                x_loc[:h_right], ROWS, [(j, (j - 1) % nd) for j in range(nd)]
-            )
-            xp2 = jnp.concatenate(
-                [left.astype(jnp.float32), x_loc.astype(jnp.float32),
-                 right.astype(jnp.float32)],
-                axis=0,
-            )
-        else:
-            x_all = jax.lax.all_gather(x_loc, ROWS, tiled=True)
-            start = jax.lax.axis_index(ROWS) * own
-            pad = jnp.zeros((wr + total_loc, LANE), x_all.dtype)
-            x_all = jnp.concatenate([pad[:wr], x_all, pad], axis=0)
-            xp2 = jax.lax.dynamic_slice(
-                x_all, (start, 0), (total_loc, LANE)
-            ).astype(jnp.float32)
-        out = window_kernel_call(
-            vals, sidx, gid, rsrc, xp2,
-            g=g, k_pad=k_pad, nspecs=nspecs, nblocks=nb_local,
-            k_c=op_meta.k_c,
-        )
-        return out
-
-    f = shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(
-            P(ROWS, None), P(ROWS, None), P(ROWS, None), P(ROWS, None),
-            P(ROWS, None),
-        ),
-        out_specs=P(ROWS, None),
-        # the local body is a pallas_call, which does not annotate its
-        # output's varying-mesh-axes; skip the vma check
-        check_vma=False,
-    )
-
-    @jax.jit
-    def spmv(op: ShardedWindow, x_padded):
-        out = f(op.vals, op.sidx, op.gid, op.rsrc, x_padded)
-        nb = op.nd * op.nb_local
-        y = out.reshape(nb, g_pad, LANE)[:, :g, :]
-        return y.reshape(-1)[: op.shape[0]]
-
-    return spmv
-
-
-# ---------------------------------------------------------------------------
-# 6) Multi-device chunked routed engine — heterogeneous row blocks
-# ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass
-class MultiDeviceRouted:
-    """Row-block routed engines pinned round-robin to devices.
-
-    The Clos-routed engine's per-chunk structures are heterogeneous (their
-    permutation domains differ), so they cannot ride one shard_map; instead
-    each chunk's operands live on its own device and the per-device jitted
-    computations are dispatched asynchronously — the single-controller
-    multi-device DP pattern. x is replicated per device at placement time.
-    """
-
-    chunks: Tuple  # RoutedCSR per block, device-resident
-    devices: Tuple
-    fns: Tuple  # jitted per-chunk spmv
-    bounds: Tuple[int, ...]
-    shape: Tuple[int, int]
-    nnz: int
-
-
-def prepare_routed_multidevice(csr: CSRMatrix, devices=None, dtype=jnp.float32):
-    """Split rows into one routed chunk per device (fair by nnz)."""
-    from ..formats.routed import (
-        prepare_routed_chunked,
-        routed_spmv,
-    )
-
-    devices = tuple(devices if devices is not None else jax.devices())
-    nd = len(devices)
-    target = max(int(np.ceil(csr.nnz / nd)), 1)
-    # fixed per-device nnz split (domain-fit chunking would merge the
-    # row blocks the devices need)
-    rc = prepare_routed_chunked(
-        csr, dtype=dtype, chunk_nnz=target, fit_domains=False
-    )
-    placed = []
-    for i, chunk in enumerate(rc.chunks):
-        placed.append(jax.device_put(chunk, devices[i % nd]))
-    # computation follows its operands' device; the jit cache compiles once
-    # per distinct chunk structure
-    fn = jax.jit(routed_spmv)
-    return MultiDeviceRouted(
-        chunks=tuple(placed),
-        devices=devices,
-        fns=(fn,) * len(placed),
-        bounds=rc.bounds,
-        shape=csr.shape,
-        nnz=csr.nnz,
-    )
-
-
-def routed_multidevice_spmv(op: MultiDeviceRouted, x) -> np.ndarray:
-    """y = A @ x with chunks computing concurrently on their devices."""
-    xj = jnp.asarray(x)
-    per_dev = {d: jax.device_put(xj, d) for d in op.devices}  # one copy/device
-    xs = [per_dev[c.vals.devices().pop()] for c in op.chunks]
-    # async dispatch: all devices run their chunk before any host sync
-    ys = [f(c, xi) for f, c, xi in zip(op.fns, op.chunks, xs)]
-    return np.concatenate([np.asarray(y) for y in ys])

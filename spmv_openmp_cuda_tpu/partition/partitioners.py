@@ -7,9 +7,9 @@ Capability analog of the reference's partitioning substrate
 - cols_partitioning          <- colsPartitioningUnifRanges
   (sparseUtils.c:61-142): split into fully independent per-column-range CSRs.
 - ell_transpose              <- ellTranspose (sparseUtils.c:145-185).
-- row_binning: the TPU analog of dynamic scheduling / chunk distribution
-  (reference ompChunksDivide.h:29-91): reorder rows by length so a static
-  Pallas grid gets balanced work.
+- row_binning: the analog of dynamic scheduling / chunk distribution
+  (reference ompChunksDivide.h:29-91): reorder rows by length so static
+  width classes get balanced work.
 
 Implementations are vectorized numpy over the sorted-key invariant, not
 translations of the reference's per-entry scan loops.
@@ -105,7 +105,7 @@ def cols_partitioning(csr: CSRMatrix, grid_cols: int) -> List[CSRMatrix]:
 def ell_transpose(ell: ELLMatrix) -> ELLMatrix:
     """Materialize the transposed ELL layout (W, M) slabs (ellTranspose
     analog, sparseUtils.c:145-185), marked slab_transposed so consumers
-    (to_dense etc.) interpret the axes correctly. The TPU device path does
+    (to_dense etc.) interpret the axes correctly. The device path does
     its own transposition — pass the untransposed host matrix to
     formats.matrix.device_ell(transposed=True) for upload."""
     assert not ell.slab_transposed, "already transposed"

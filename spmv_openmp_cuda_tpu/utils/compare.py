@@ -22,6 +22,23 @@ class DiffReport:
     first_bad_index: int = -1
 
 
+def relative_error(y, csr, x) -> float:
+    """max_i |y_i - oracle_i| / max_i sum_j |a_ij x_j|.
+
+    The reference protocol (vectors_diff on |x| < MAXRND inputs) passes
+    nearly any result, because every product is tiny; this scale-aware
+    bound is what tells float32, bf16 and float64 results apart."""
+    from ..formats.matrix import CSRMatrix
+    from ..ops.oracle import serial_csr_spmv
+
+    x = np.asarray(x, dtype=np.float64)
+    ref = serial_csr_spmv(csr, x)
+    abs_csr = CSRMatrix(csr.shape, csr.indptr, csr.indices, np.abs(csr.data))
+    scale = float(serial_csr_spmv(abs_csr, np.abs(x)).max(initial=0.0))
+    diff = np.abs(np.asarray(y, dtype=np.float64).ravel()[: csr.shape[0]] - ref)
+    return float(diff.max(initial=0.0)) / max(scale, np.finfo(np.float64).tiny)
+
+
 def vectors_diff(
     a: np.ndarray,
     b: np.ndarray,

@@ -3,22 +3,39 @@
 Analog of the reference's OMP ICV introspection (ompGetICV.c:23-73:
 ompGetRuntimeSchedule / ompGetAllICV printed for logging) and the standalone
 env-check programs (test/ompChecks/*.cpp): report the JAX backend, device
-inventory, mesh capabilities, and the config env overrides in effect.
+inventory, the card's name and power limit, and the config env overrides in
+effect.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+import subprocess
+from typing import Dict, List, Optional
 
 
 def env_overrides() -> Dict[str, str]:
     keys = [
-        "GRID_ROWS", "GRID_COLS", "BLOCK_ROWS", "BLOCK_WIDTH",
-        "PALLAS_BLOCK_N", "SPMV_DTYPE", "AVG_TIMES_ITERATION",
+        "GRID_ROWS", "GRID_COLS", "SPMV_DTYPE", "AVG_TIMES_ITERATION",
         "SPMV_SCHEDULE", "SPMV_ROWLENS", "SPMV_SIMD", "TMPDIR",
-        "JAX_PLATFORMS", "XLA_FLAGS",
+        "JAX_PLATFORMS", "XLA_FLAGS", "JAX_COMPILATION_CACHE_DIR",
+        "XLA_PYTHON_CLIENT_MEM_FRACTION",
     ]
     return {k: os.environ[k] for k in keys if k in os.environ}
+
+
+def gpu_name_power() -> Optional[str]:
+    """`nvidia-smi --query-gpu=name,power.limit` as it prints it (one line
+    per card), or None where nvidia-smi is missing or fails. Times measured
+    on a card are only comparable at the same power limit."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30,
+        )
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout.strip() if out.returncode == 0 else None
 
 
 def runtime_info() -> Dict[str, object]:
@@ -30,18 +47,16 @@ def runtime_info() -> Dict[str, object]:
         "backend": jax.default_backend(),
         "device_count": len(devs),
         "devices": [str(d) for d in devs],
+        "device_kind": devs[0].device_kind,
         "process_index": jax.process_index(),
         "process_count": jax.process_count(),
         "env_overrides": env_overrides(),
     }
-    try:
-        d = devs[0]
-        info["device_kind"] = d.device_kind
-        stats = d.memory_stats() or {}
-        if "bytes_limit" in stats:
-            info["hbm_bytes"] = stats["bytes_limit"]
-    except Exception:
-        pass
+    if info["backend"] == "gpu":
+        info["gpu_name_power_limit"] = gpu_name_power()
+        info["memory_bytes_limit"] = (devs[0].memory_stats() or {}).get(
+            "bytes_limit"
+        )
     return info
 
 

@@ -1,29 +1,23 @@
-"""Shared Pallas environment helpers."""
+"""Where this repository's Pallas kernels run: the one backend rule.
+
+No registered engine is a Pallas kernel; the DIA kernel candidates of
+scripts/ab_kernels.py use this rule, so their tests run them in the
+interpreter on the CPU and the A/B compiles them on the GPU."""
 from __future__ import annotations
 
 import jax
-import jax.numpy as jnp
-
-from ..config import LANE
 
 
-def interpret() -> bool:
-    """Run Pallas kernels in interpreter mode off-TPU (CPU tests)."""
-    return jax.default_backend() != "tpu"
+def interpret(backend: str | None = None) -> bool:
+    """Whether a Pallas kernel runs in the interpreter.
 
-
-def n_windows_for(n_cols: int, max_col_window: int, window_elems: int) -> int:
-    """Window count covering all n_cols columns (not just the populated
-    ones — trailing all-zero columns must still pad cleanly)."""
-    return max(max_col_window + 1, -(-max(n_cols, 1) // window_elems))
-
-
-def pack_x_windows_flat(x, nwin: int, n: int, dtype, window_panels: int):
-    """x -> transposed window stack, flattened rows: rows [w*128, (w+1)*128)
-    hold window w as (residue, panel)."""
-    xp = jnp.pad(x.astype(dtype), (0, nwin * window_panels * LANE - n))
-    return (
-        xp.reshape(nwin, window_panels, LANE)
-        .transpose(0, 2, 1)
-        .reshape(nwin * LANE, LANE)
+    cpu: yes (the tests); gpu: no, the kernel compiles through Triton; any
+    other backend has no kernel route here and raises."""
+    backend = backend or jax.default_backend()
+    if backend == "cpu":
+        return True
+    if backend == "gpu":
+        return False
+    raise RuntimeError(
+        f"no Pallas kernel route for backend {backend!r} (expected cpu or gpu)"
     )

@@ -83,8 +83,8 @@ def test_cli_auto_mode_and_dtype(tmp_path, capsys):
     assert rc == 0
     out = capsys.readouterr().out
     assert "#auto: format=" in out and "#check: OK" in out
-    # f64 rides the double-float Pallas engines when the structure allows
-    # (x64 flag is process-global: restore it)
+    # f64 runs the selected engine natively (x64 flag is process-global:
+    # restore it)
     import jax
 
     x64_before = jax.config.jax_enable_x64
@@ -96,12 +96,9 @@ def test_cli_auto_mode_and_dtype(tmp_path, capsys):
         jax.config.update("jax_enable_x64", x64_before)
     assert rc == 0
     out = capsys.readouterr().out
-    assert (
-        "computeMode:PL_DIA_F64" in out
-        or "computeMode:PL_DIA_RESID_F64" in out
-        or "computeMode:PL_CSR_WINDOW_F64" in out
-        or "computeMode:CSR_ROWS_BINNED" in out
-    )
+    from spmv_openmp_cuda_tpu.models.auto import AUTO_MODES
+
+    assert any(f"computeMode:{m} " in out for m in AUTO_MODES.values()), out
     assert "#check: OK" in out
 
 
@@ -160,10 +157,10 @@ def test_cli_save_load_prepared(tmp_path, capsys):
     mtx = str(tmp_path / "m.mtx")
     write_mtx(mtx, synth.power_law(600, 600, 4.0, seed=3))
     prep = str(tmp_path / "prep.npz")
-    rc = main([mtx, "RNDVECT", "PL_CSR_ROUTED", "--check", "--no-dump",
+    rc = main([mtx, "RNDVECT", "CSR_ROWS_BINNED", "--check", "--no-dump",
                f"--save-prepared={prep}"])
     assert rc == 0
-    rc = main([mtx, "RNDVECT", "PL_CSR_ROUTED", "--check", "--no-dump",
+    rc = main([mtx, "RNDVECT", "CSR_ROWS_BINNED", "--check", "--no-dump",
                f"--load-prepared={prep}"])
     assert rc == 0
     out = capsys.readouterr().out
@@ -213,13 +210,19 @@ def test_cli_f64_pallas_mode_remaps(tmp_path, capsys):
 
     mtx = str(tmp_path / "m.mtx")
     write_mtx(mtx, synth.banded(300, 300, 4, fill=1.0, seed=2))
-    rc = main([mtx, "RNDVECT", "PL_DIA_ROWS", "--dtype", "float64",
-               "--check", "--no-dump"])
+    import jax
+
+    x64_before = jax.config.jax_enable_x64
+    try:
+        rc = main([mtx, "RNDVECT", "DIA_BF16", "--dtype", "float64",
+                   "--check", "--no-dump"])
+    finally:
+        jax.config.update("jax_enable_x64", x64_before)
     assert rc == 0
     out = capsys.readouterr().out
-    # f64 + Pallas DIA remaps to the double-float Pallas engine
-    assert "remapping to PL_DIA_F64" in out
-    assert "computeMode:PL_DIA_F64" in out
+    # a bf16 slab cannot hold float64: the mode remaps to its f64 twin
+    assert "remapping to DIA_ROWS" in out
+    assert "computeMode:DIA_ROWS" in out
 
 
 def test_cli_save_load_prepared_dia_pallas(tmp_path, capsys):
@@ -230,20 +233,20 @@ def test_cli_save_load_prepared_dia_pallas(tmp_path, capsys):
     mtx = str(tmp_path / "m.mtx")
     write_mtx(mtx, synth.banded(400, 400, 6, fill=1.0, seed=5))
     prep = str(tmp_path / "dia.npz")
-    # save under the Pallas DIA mode ((DeviceDIA, plan) operands)
-    rc = main([mtx, "RNDVECT", "PL_DIA_ROWS", "--check", "--no-dump",
+    # save under the bf16-slab DIA mode (bf16 leaves survive the .npz)
+    rc = main([mtx, "RNDVECT", "DIA_BF16", "--check", "--no-dump",
                f"--save-prepared={prep}"])
     assert rc == 0
-    # reload under the Pallas mode (plan re-derived) ...
-    rc = main([mtx, "RNDVECT", "PL_DIA_ROWS", "--check", "--no-dump",
+    # reload under the same mode ...
+    rc = main([mtx, "RNDVECT", "DIA_BF16", "--check", "--no-dump",
                f"--load-prepared={prep}"])
     assert rc == 0
-    # ... and under the XLA DIA mode (pair unwraps)
+    # ... and under the f32 DIA mode (same DeviceDIA kind)
     rc = main([mtx, "RNDVECT", "DIA_ROWS", "--check", "--no-dump",
                f"--load-prepared={prep}"])
     assert rc == 0
     # kind/mode mismatch is a friendly error, not a trace crash
-    rc = main([mtx, "RNDVECT", "PL_CSR_ROUTED", "--no-dump",
+    rc = main([mtx, "RNDVECT", "CSR_ROWS_BINNED", "--no-dump",
                f"--load-prepared={prep}"])
     assert rc == 1
     assert "does not match mode" in capsys.readouterr().err
@@ -276,3 +279,26 @@ def test_cli_profile_trace(tmp_path, capsys):
     for root, _dirs, files in os.walk(trace_dir):
         found.extend(files)
     assert found, "profiler trace produced no files"
+
+
+def test_compile_cache_placement(monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR wins; otherwise a fixed <repo>/.jax_cache
+    on the GPU and none on the CPU."""
+    import jax
+
+    from spmv_openmp_cuda_tpu.utils import compile_cache
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere/cache")
+        assert compile_cache.enable_compile_cache() == "/elsewhere/cache"
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        # the CPU backend (these tests) keeps no persistent cache
+        assert compile_cache.enable_compile_cache() is None
+        assert jax.config.jax_compilation_cache_dir == before
+        got = compile_cache.enable_compile_cache(backend="gpu")
+        assert got == os.path.join(repo, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == got
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

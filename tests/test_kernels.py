@@ -15,16 +15,9 @@ from spmv_openmp_cuda_tpu.ops.oracle import (
 from spmv_openmp_cuda_tpu.utils import synth
 from spmv_openmp_cuda_tpu.utils.compare import vectors_diff
 
+from matrix_regimes import DIA_MODES, MATRICES
+
 CFG = Config(dtype="float32", avg_times_iteration=1)
-
-MATRICES = {
-    "uniform": synth.random_uniform(111, 97, 0.05, seed=1, val_scale=synth.np.float64(1.0)),
-    "banded": synth.banded(128, 128, 7, fill=0.9, seed=2),
-    "powerlaw": synth.power_law(200, 180, 4.0, seed=3),
-    "diag": synth.diagonal(64),
-    "empty_rows": synth.random_uniform(90, 90, 0.01, seed=4),
-}
-
 
 def _prep(coo):
     csr = S.coo_to_csr(coo)
@@ -46,7 +39,6 @@ def test_oracle_vs_oracle(mat_name):
 @pytest.mark.parametrize("kname", registry.names())
 def test_kernel_matches_oracle(mat_name, kname):
     from spmv_openmp_cuda_tpu.formats.dia import DiaFillError
-    from spmv_openmp_cuda_tpu.formats.window import WindowError
 
     coo = MATRICES[mat_name]
     csr, ell, x = _prep(coo)
@@ -60,15 +52,7 @@ def test_kernel_matches_oracle(mat_name, kname):
     except DiaFillError:
         # DIA legitimately rejects diagonal-sparse matrices (the ELL-size-cap
         # analog); the harness records this and moves on.
-        assert kname in ("DIA_ROWS", "PL_DIA_ROWS", "PL_DIA_BF16",
-                         "PL_DIA_RESID", "PL_DIA_RESID_BF16", "PL_DIA_F64",
-                         "PL_DIA_RESID_F64")
-        return
-    except WindowError:
-        # the windowed engine legitimately rejects non-local matrices
-        assert kname in (
-            "PL_CSR_WINDOW", "PL_CSR_WINDOW_BF16", "PL_CSR_WINDOW_F64"
-        )
+        assert kname in DIA_MODES
         return
     f = spec.jitted(operands)
     y = np.asarray(f(jnp.asarray(x, dtype=CFG.jnp_dtype)), dtype=np.float64)

@@ -104,78 +104,6 @@ def test_native_crlf_banner(tmp_path):
     assert coo.shape == (2, 2) and coo.nnz == 1
 
 
-def test_native_window_scan_matches_numpy():
-    from spmv_openmp_cuda_tpu.io import native
-    from spmv_openmp_cuda_tpu.formats import window as W
-
-    if not native.available():
-        pytest.skip("native lib not built")
-    coo = synth.fem_like(m=5000, n=5000, nnz=60000, spread=800, lo=3, hi=18, seed=6)
-    csr = S.coo_to_csr(coo)
-    base = W._base_fields(csr)
-    rq, lane, q, jres = base
-    for g in (4, 12, 16, 64):
-        nblocks = -(-csr.shape[0] // (g * 128))
-        res = native.window_scan_native(rq, lane, q, jres, g, nblocks)
-        assert res is not None
-        d_min, d_max, hl, hr = res
-        blk = rq // g
-        d = q - blk * g
-        cls = (rq % g) % 8
-        key = (blk * 8 + cls) * 128
-        dl8 = np.bincount(key + lane, minlength=nblocks * 8 * 128).reshape(
-            nblocks, 8, 128
-        )
-        dr8 = np.bincount(key + jres, minlength=nblocks * 8 * 128).reshape(
-            nblocks, 8, 128
-        )
-        assert d_min == int(d.min()) and d_max == int(d.max())
-        np.testing.assert_array_equal(hl, dl8)
-        np.testing.assert_array_equal(hr, dr8)
-
-
-def test_native_rank_in_group_matches_argsort():
-    from spmv_openmp_cuda_tpu.io import native
-
-    if not native.available():
-        pytest.skip("native lib not built")
-    rng = np.random.default_rng(3)
-    nblocks = 23
-    blk = np.sort(rng.integers(0, nblocks, 50000))
-    keys = blk * 1024 + rng.integers(0, 1024, 50000)
-    out = native.rank_in_group_native(keys, 1024, nblocks)
-    assert out is not None
-    order = np.argsort(keys, kind="stable")
-    sk = keys[order]
-    ref = np.empty(keys.size, np.int64)
-    newrun = np.r_[True, sk[1:] != sk[:-1]]
-    run_start = np.maximum.accumulate(np.where(newrun, np.arange(keys.size), 0))
-    ref[order] = np.arange(keys.size) - run_start
-    np.testing.assert_array_equal(out, ref)
-
-
-def test_native_window_fill_matches_numpy(monkeypatch):
-    from spmv_openmp_cuda_tpu.formats import window as W
-    from spmv_openmp_cuda_tpu.io import native
-
-    if not native.available():
-        pytest.skip("native lib not built")
-    coo = synth.fem_like(m=4000, n=4000, nnz=40000, spread=500, lo=4, hi=16, seed=9)
-    csr = S.coo_to_csr(coo)
-    for kw in (dict(g=8, bps=1), dict(g=8, bps=4), dict(g=16, cap=None)):
-        m_nat = W.prepare_window(csr, **kw)
-        monkeypatch.setattr(
-            "spmv_openmp_cuda_tpu.io.native.window_fill_native",
-            lambda *a, **k: False,
-        )
-        m_py = W.prepare_window(csr, **kw)
-        monkeypatch.undo()
-        np.testing.assert_array_equal(np.asarray(m_nat.vals), np.asarray(m_py.vals))
-        np.testing.assert_array_equal(np.asarray(m_nat.sidx), np.asarray(m_py.sidx))
-        np.testing.assert_array_equal(np.asarray(m_nat.gid), np.asarray(m_py.gid))
-        np.testing.assert_array_equal(np.asarray(m_nat.rsrc), np.asarray(m_py.rsrc))
-
-
 def test_native_library_fresh():
     """The built .so must not be older than its source (a stale binary
     silently diverges from spmv_native.cpp; rebuild with make -C native)."""

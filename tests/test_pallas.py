@@ -1,224 +1,107 @@
-"""Pallas kernels (interpret mode on CPU) vs the oracle, across block
-geometries (the launch-config sweep analog)."""
-import numpy as np
-import pytest
+"""The backend rule for Pallas kernels (utils/pallas_env.py): the Pallas
+interpreter on the CPU backend, a compiled kernel through Triton on the
+GPU, and an error on any other backend. And the DIA kernel candidates of
+scripts/ab_kernels.py, run here in the interpreter against the oracle, so
+the A/B on the card times kernels known to be right."""
+import importlib.util
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
+import numpy as np
+import pytest
 
 import spmv_openmp_cuda_tpu as S
-from spmv_openmp_cuda_tpu.config import Config
-from spmv_openmp_cuda_tpu.formats.dia import prepare_dia
-from spmv_openmp_cuda_tpu.io.vectors import fill_rnd_vector
-from spmv_openmp_cuda_tpu.ops import registry
-from spmv_openmp_cuda_tpu.ops.oracle import serial_csr_spmv
-from spmv_openmp_cuda_tpu.ops.spmv_pallas import dia_spmv_pallas, ell_t_slab_pallas
-from spmv_openmp_cuda_tpu.utils import synth
-from spmv_openmp_cuda_tpu.utils.compare import vectors_diff
+from spmv_openmp_cuda_tpu.utils import pallas_env, synth
+from spmv_openmp_cuda_tpu.utils.compare import relative_error
+
+from matrix_regimes import MATRICES
+
+TOL = {"f32": 1e-5, "bf16": 8e-3, "f64": 1e-12}
 
 
-def _mats(m=700, n=700):
-    coo = synth.banded(m, n, 7, fill=0.9, seed=2)
-    csr = S.coo_to_csr(coo)
-    ell = S.coo_to_ell(coo)
-    x = fill_rnd_vector(n, seed=5)
-    return csr, ell, x, serial_csr_spmv(csr, x)
+@pytest.mark.parametrize("backend,want", [("cpu", True), ("gpu", False)])
+def test_backend_rule(backend, want):
+    assert pallas_env.interpret(backend) is want
 
 
-@pytest.mark.parametrize("block_n", [128, 256, 2048])
-def test_ell_t_pallas_blocks(block_n):
-    csr, ell, x, oracle = _mats()
-    mat = S.device_ell(ell, dtype=jnp.float32, transposed=True)
-    y = np.asarray(
-        jax.jit(lambda m_, x_: ell_t_slab_pallas(m_, x_, block_n=block_n))(
-            mat, jnp.asarray(x, jnp.float32)
-        ),
-        np.float64,
-    )
-    rep = vectors_diff(y, oracle)
-    assert rep.ok, rep
+@pytest.mark.parametrize("backend", ["rocm", "METAL", "neuron"])
+def test_backend_rule_rejects_other_backends(backend):
+    with pytest.raises(RuntimeError, match="no Pallas kernel route"):
+        pallas_env.interpret(backend)
 
 
-@pytest.mark.parametrize("vmem_budget", [8 << 10, 64 << 10, 2 << 20])
-def test_dia_pallas_blocks(vmem_budget):
-    from spmv_openmp_cuda_tpu.ops.spmv_pallas import pad_dia_for_pallas, plan_dia
-
-    csr, ell, x, oracle = _mats()
-    mat = prepare_dia(csr)
-    plan = plan_dia(mat, vmem_budget=vmem_budget)
-    mat = pad_dia_for_pallas(mat, plan)
-    y = np.asarray(
-        jax.jit(lambda m_, x_: dia_spmv_pallas(m_, x_, plan))(
-            mat, jnp.asarray(x, jnp.float32)
-        ),
-        np.float64,
-    )
-    rep = vectors_diff(y, oracle)
-    assert rep.ok, rep
+def test_backend_rule_follows_default_backend():
+    assert pallas_env.interpret() is True  # the tests run on the cpu backend
 
 
-def test_dia_pallas_wide_band():
-    # diagonal reach wider than one lane-row: pad_sub > 1 forces multi-row
-    # shifts through the 3-block window
-    coo = synth.banded(600, 600, 300, fill=0.05, seed=3)
-    csr = S.coo_to_csr(coo)
-    mat = prepare_dia(csr, max_fill_ratio=1e9)
-    x = fill_rnd_vector(600, seed=6)
-    y = np.asarray(dia_spmv_pallas(mat, jnp.asarray(x, jnp.float32)), np.float64)
-    rep = vectors_diff(y, serial_csr_spmv(csr, x))
-    assert rep.ok, rep
+def _load_ab():
+    if "ab_kernels" not in sys.modules:
+        path = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                            "scripts", "ab_kernels.py")
+        spec = importlib.util.spec_from_file_location("ab_kernels", path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["ab_kernels"] = mod  # dataclasses look their module up
+        spec.loader.exec_module(mod)
+    return sys.modules["ab_kernels"]
 
 
-@pytest.mark.parametrize("kname", ["PL_ELL_ROWS_T", "PL_DIA_ROWS"])
-def test_pallas_registry_modes(kname):
-    csr, ell, x, oracle = _mats(400, 400)
-    spec = registry.get(kname)
-    ops = spec.prepare(csr, ell, Config())
-    f = spec.jitted(ops)
-    y = np.asarray(f(jnp.asarray(x, jnp.float32)), np.float64)
-    rep = vectors_diff(y[: csr.shape[0]], oracle)
-    assert rep.ok, rep
+@pytest.fixture
+def ab():
+    """The A/B script as a module, under x64 (restored after: global)."""
+    before = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield _load_ab()
+    finally:
+        jax.config.update("jax_enable_x64", before)
 
 
-@pytest.mark.parametrize(
-    "gen,kw",
-    [
-        (synth.random_uniform, dict(m=700, n=700, density=0.004)),
-        (synth.random_uniform, dict(m=4096, n=4096, density=24500 / 4096**2)),
-        (synth.banded, dict(m=500, n=500, bandwidth=9, fill=0.8)),
-        (synth.power_law, dict(m=900, n=900, avg_nnz_per_row=4.0)),
-        (synth.random_uniform, dict(m=300, n=33000, density=0.0004)),
-    ],
-)
-def test_lanes_small_matches_oracle(gen, kw):
-    from spmv_openmp_cuda_tpu.formats.lanes import (
-        lanes_small_spmv,
-        prepare_lanes_small,
-    )
-
-    coo = gen(seed=11, **kw)
-    csr = S.coo_to_csr(coo)
-    x = fill_rnd_vector(coo.shape[1], seed=3)
-    mat = prepare_lanes_small(csr)
-    y = np.asarray(
-        jax.jit(lanes_small_spmv)(mat, jnp.asarray(x, jnp.float32)), np.float64
-    )
-    rep = vectors_diff(y, serial_csr_spmv(csr, x))
-    assert rep.ok, rep
+def _check(ab, variant, csr, dtype_key):
+    run, ops, acc = ab.build(variant, csr, dtype_key)
+    x = np.random.default_rng(5).uniform(-1, 1, csr.shape[1])
+    y = jax.jit(run)(ops, jnp.asarray(x, acc))
+    assert y.shape == (csr.shape[0],) and y.dtype == acc
+    err = relative_error(y, csr, x)
+    assert err <= TOL[dtype_key], f"{variant} {dtype_key}: {err:.2e}"
+    return ops
 
 
-def test_lanes_small_rejects_large_g():
-    from spmv_openmp_cuda_tpu.formats.lanes import LanesError, prepare_lanes_small
-
-    coo = synth.random_uniform(64 * 128 + 1, 100, density=0.001, seed=0)
-    with pytest.raises(LanesError):
-        prepare_lanes_small(S.coo_to_csr(coo))
-
-
-def test_lanes_small_trailing_empty_columns():
-    # nnz confined to the first window of a 20000-column matrix: window
-    # count must still cover all columns (regression: negative pad crash)
-    from spmv_openmp_cuda_tpu.formats.lanes import (
-        lanes_small_spmv,
-        prepare_lanes_small,
-    )
-
-    rng = np.random.default_rng(31)
-    from spmv_openmp_cuda_tpu.formats.matrix import COOMatrix
-    from spmv_openmp_cuda_tpu.formats.convert import sort_coo
-
-    rows = rng.integers(0, 1000, 600)
-    cols = rng.integers(0, 16000, 600)
-    coo = sort_coo(COOMatrix((1000, 20000), rows, cols, rng.standard_normal(600)))
-    csr = S.coo_to_csr(coo)
-    x = fill_rnd_vector(20000, seed=32)
-    mat = prepare_lanes_small(csr)
-    y = np.asarray(jax.jit(lanes_small_spmv)(mat, jnp.asarray(x, jnp.float32)), np.float64)
-    rep = vectors_diff(y, serial_csr_spmv(csr, x))
-    assert rep.ok, rep
+@pytest.mark.parametrize("dtype_key", ["f32", "bf16", "f64"])
+@pytest.mark.parametrize("mat_name", ["banded", "wide_band", "wide_rect"])
+@pytest.mark.parametrize("variant", ["PL_unroll_b128_w8_s3",
+                                     "PL_loop_b256_w4_s2"])
+def test_dia_kernel_interpret(ab, variant, mat_name, dtype_key):
+    csr = S.coo_to_csr(MATRICES[mat_name])
+    ops = _check(ab, variant, csr, dtype_key)
+    assert ops.data.shape[1] % ops.block == 0
+    assert ops.unroll == variant.startswith("PL_unroll")
 
 
-def test_dia_pallas_wide_matrix_far_band():
-    # short matrix, far-off diagonal (pad_sub >> s): the block plan must
-    # honor the window invariant and pad_x_dia must clip n >> row reach
-    # (regression: negative pads / broken 3-block window)
-    from spmv_openmp_cuda_tpu.ops.spmv_pallas import pad_dia_for_pallas, plan_dia
-
-    m, n = 2560, 65536
-    rows = np.arange(m)
-    cols = rows + 60000
-    ok = cols < n
-    from spmv_openmp_cuda_tpu.formats.matrix import COOMatrix
-    from spmv_openmp_cuda_tpu.formats.convert import sort_coo
-
-    rng = np.random.default_rng(44)
-    coo = sort_coo(COOMatrix((m, n), rows[ok], cols[ok], rng.standard_normal(ok.sum())))
-    csr = S.coo_to_csr(coo)
-    mat = prepare_dia(csr, max_fill_ratio=1e9)
-    plan = plan_dia(mat)
-    mat = pad_dia_for_pallas(mat, plan)
-    x = fill_rnd_vector(n, seed=45)
-    y = np.asarray(dia_spmv_pallas(mat, jnp.asarray(x, jnp.float32), plan), np.float64)
-    rep = vectors_diff(y, serial_csr_spmv(csr, x))
-    assert rep.ok, rep
+def _band_with_fringe():
+    """A dense band plus scattered entries far off it (raefsky1's shape)."""
+    band = synth.banded(400, 400, 4, fill=1.0, seed=3)
+    rng = np.random.default_rng(4)
+    r = rng.integers(0, 400, 60)
+    c = (r + rng.integers(20, 380, 60)) % 400
+    keep = np.abs(c - r) > 8
+    coo = S.COOMatrix((400, 400), np.r_[band.rows, r[keep]],
+                      np.r_[band.cols, c[keep]],
+                      np.r_[band.vals, rng.standard_normal(int(keep.sum()))])
+    return S.coo_to_csr(S.sort_coo(coo))
 
 
-def test_auto_spmv_unknown_format():
-    import pytest as _pytest
-    from spmv_openmp_cuda_tpu.models.auto import AutoSpMV
-
-    csr = S.coo_to_csr(synth.banded(200, 200, 3, seed=1))
-    with _pytest.raises(ValueError, match="unknown format"):
-        AutoSpMV.from_csr(csr, format="csr")
-
-
-def test_dia_resid_hybrid():
-    """DIA+windowed-residual: dense band + scattered fringe (raefsky-class).
-
-    The fringe rides windowed-gather slots inside the DIA kernel; pure DIA
-    would pay a full m_pad diagonal per straggler offset."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    import spmv_openmp_cuda_tpu as S
-    from spmv_openmp_cuda_tpu.io.vectors import fill_rnd_vector
-    from spmv_openmp_cuda_tpu.ops import spmv_pallas as SP
-    from spmv_openmp_cuda_tpu.ops.oracle import serial_csr_spmv
-    from spmv_openmp_cuda_tpu.utils import synth
-    from spmv_openmp_cuda_tpu.utils.compare import vectors_diff
-
-    coo = synth.banded(3000, 3000, 30, fill=1.0, exact_nnz=185000, seed=0)
-    csr = S.coo_to_csr(coo)
-    x = fill_rnd_vector(3000, seed=1)
-    oracle = serial_csr_spmv(csr, x)
-    for dt in (None, jnp.bfloat16):
-        dr, plan = SP.prepare_dia_resid(csr, dia_dtype=dt, vals_dtype=dt)
-        assert dr.nnz_resid > 0  # the fringe actually split out
-        assert len(dr.mat.offsets) == 61  # dense band only
-        y = np.asarray(
-            SP.dia_spmv_pallas(dr.mat, jnp.asarray(x, jnp.float32), plan, resid=dr),
-            np.float64,
-        )
-        rep = vectors_diff(y, oracle)
-        assert rep.ok, rep
+@pytest.mark.parametrize("dtype_key", ["f32", "bf16", "f64"])
+def test_dia_resid_kernel_interpret(ab, dtype_key):
+    csr = _band_with_fringe()
+    ops = _check(ab, "PL_RESID_b128", csr, dtype_key)
+    assert len(ops.offsets) == 9  # the band alone forms the core
+    assert int(np.count_nonzero(np.asarray(ops.rvals))) > 0
 
 
-def test_auto_selects_dia_resid():
-    from spmv_openmp_cuda_tpu.models.auto import AutoSpMV, select_format
-    import numpy as np
-
-    import spmv_openmp_cuda_tpu as S
-    from spmv_openmp_cuda_tpu.io.vectors import fill_rnd_vector
-    from spmv_openmp_cuda_tpu.ops.oracle import serial_csr_spmv
-    from spmv_openmp_cuda_tpu.utils import synth
-    from spmv_openmp_cuda_tpu.utils.compare import vectors_diff
-
-    # band 25 diagonals + a fringe of ~47 near-empty offsets: the hybrid
-    # sheds >= 25% of the diagonals
-    coo = synth.banded(2500, 2500, 12, fill=1.0, exact_nnz=66000, seed=2)
-    csr = S.coo_to_csr(coo)
-    assert select_format(csr) == "dia_resid"
-    model = AutoSpMV.from_csr(csr)
-    assert model.format == "dia_resid"
-    x = fill_rnd_vector(2500, seed=3)
-    rep = vectors_diff(np.asarray(model(x), np.float64), serial_csr_spmv(csr, x))
-    assert rep.ok, rep
+def test_parse_variant(ab):
+    assert ab.parse_variant("PL_unroll_b512_w8_s3") == dict(
+        resid=False, unroll=True, block=512, num_warps=8, num_stages=3)
+    assert ab.parse_variant("PL_RESID_b128") == dict(
+        resid=True, unroll=False, block=128)

@@ -53,6 +53,8 @@ def test_env_info():
     info = runtime_info()
     assert info["backend"] == "cpu" and info["device_count"] == 8
     assert "jax_version" in format_info()
+    # the card's name and power limit are reported on the gpu backend only
+    assert "gpu_name_power_limit" not in info
 
 
 def test_is_nnz():
@@ -64,96 +66,21 @@ def test_is_nnz():
             assert is_nnz(csr, i, j) == (dense[i, j] != 0)
 
 
-def test_serialize_roundtrip_lanes(tmp_path):
-    from spmv_openmp_cuda_tpu.formats.lanes import lanes_small_spmv, prepare_lanes_small
-    from spmv_openmp_cuda_tpu.formats.serialize import load_prepared, save_prepared
+def test_gpu_name_power_without_nvidia_smi(monkeypatch):
+    from spmv_openmp_cuda_tpu.utils import envinfo
 
-    coo = synth.random_uniform(600, 600, 0.01, seed=3)
-    csr = S.coo_to_csr(coo)
-    mat = prepare_lanes_small(csr)
-    p = str(tmp_path / "lanes.npz")
+    monkeypatch.setenv("PATH", "/nonexistent")
+    assert envinfo.gpu_name_power() is None
+
+
+def test_serialize_roundtrip_dia_bf16(tmp_path):
+    csr = S.coo_to_csr(synth.banded(300, 300, 6, seed=2))
+    mat = prepare_dia(csr, dtype=jnp.bfloat16)
+    p = str(tmp_path / "b.npz")
     save_prepared(p, mat)
-    mat2 = load_prepared(p)
-    x = fill_rnd_vector(600, seed=4)
-    y1 = np.asarray(lanes_small_spmv(mat, jnp.asarray(x, jnp.float32)))
-    y2 = np.asarray(lanes_small_spmv(mat2, jnp.asarray(x, jnp.float32)))
-    np.testing.assert_array_equal(y1, y2)
-
-
-def test_serialize_roundtrip_routed(tmp_path):
-    from spmv_openmp_cuda_tpu.formats.routed import prepare_routed, routed_spmv
-    from spmv_openmp_cuda_tpu.formats.serialize import load_prepared, save_prepared
-
-    coo = synth.power_law(3000, 3000, 5.0, seed=5)
-    csr = S.coo_to_csr(coo)
-    mat = prepare_routed(csr)
-    p = str(tmp_path / "routed.npz")
-    save_prepared(p, mat)
-    mat2 = load_prepared(p)
-    x = fill_rnd_vector(3000, seed=6)
-    y1 = np.asarray(routed_spmv(mat, jnp.asarray(x, jnp.float32)))
-    y2 = np.asarray(routed_spmv(mat2, jnp.asarray(x, jnp.float32)))
-    np.testing.assert_array_equal(y1, y2)
-
-
-def test_serialize_roundtrip_routed_heavy(tmp_path):
-    from spmv_openmp_cuda_tpu.formats.routed import prepare_routed, routed_spmv
-    from spmv_openmp_cuda_tpu.formats.serialize import load_prepared, save_prepared
-    from tests.test_routed import _make_spiked
-
-    csr = _make_spiked(2500, 25000, 18000, 4000, seed=9)
-    mat = prepare_routed(csr)
-    assert mat.heavy_rows
-    p = str(tmp_path / "routedh.npz")
-    save_prepared(p, mat)
-    mat2 = load_prepared(p)
-    x = fill_rnd_vector(25000, seed=10)
-    y1 = np.asarray(routed_spmv(mat, jnp.asarray(x, jnp.float32)))
-    y2 = np.asarray(routed_spmv(mat2, jnp.asarray(x, jnp.float32)))
-    np.testing.assert_array_equal(y1, y2)
-
-
-def test_serialize_roundtrip_window(tmp_path):
-    import numpy as np
-    import jax.numpy as jnp
-
-    import spmv_openmp_cuda_tpu as S
-    from spmv_openmp_cuda_tpu.formats.serialize import load_prepared, save_prepared
-    from spmv_openmp_cuda_tpu.formats.window import prepare_window_auto, window_spmv
-    from spmv_openmp_cuda_tpu.io.vectors import fill_rnd_vector
-    from spmv_openmp_cuda_tpu.utils import synth
-
-    coo = synth.fem_like(m=2000, n=2000, nnz=20000, spread=300, lo=4, hi=14, seed=6)
-    csr = S.coo_to_csr(coo)
-    mat = prepare_window_auto(csr, vals_dtype=jnp.bfloat16)
-    path = str(tmp_path / "win.npz")
-    save_prepared(path, mat)
-    mat2 = load_prepared(path)
-    x = jnp.asarray(fill_rnd_vector(2000, seed=1), jnp.float32)
-    y1 = np.asarray(window_spmv(mat, x))
-    y2 = np.asarray(window_spmv(mat2, x))
-    assert np.array_equal(y1, y2)
-
-
-def test_serialize_roundtrip_window_shared_staging(tmp_path):
-    import numpy as np
-    import jax.numpy as jnp
-
-    import spmv_openmp_cuda_tpu as S
-    from spmv_openmp_cuda_tpu.formats.serialize import load_prepared, save_prepared
-    from spmv_openmp_cuda_tpu.formats.window import prepare_window, window_spmv
-    from spmv_openmp_cuda_tpu.io.vectors import fill_rnd_vector
-    from spmv_openmp_cuda_tpu.utils import synth
-
-    coo = synth.fem_like(m=5000, n=5000, nnz=50000, spread=600, lo=4, hi=16, seed=8)
-    csr = S.coo_to_csr(coo)
-    mat = prepare_window(csr, g=8, bps=4)  # shared_w auto-on
-    assert mat.shared_w and mat.bps == 4
-    path = str(tmp_path / "win_sw.npz")
-    save_prepared(path, mat)
-    mat2 = load_prepared(path)
-    assert mat2.shared_w and mat2.bps == 4
-    x = jnp.asarray(fill_rnd_vector(5000, seed=1), jnp.float32)
+    back = load_prepared(p)
+    assert back.data.dtype == jnp.bfloat16 and back.offsets == mat.offsets
+    x = jnp.asarray(fill_rnd_vector(300, seed=3), jnp.float32)
     np.testing.assert_array_equal(
-        np.asarray(window_spmv(mat, x)), np.asarray(window_spmv(mat2, x))
+        np.asarray(dia_spmv(mat, x)), np.asarray(dia_spmv(back, x))
     )

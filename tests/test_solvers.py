@@ -1,7 +1,7 @@
 """Iterative solvers over the SpMV engines (models/solvers.py): the whole
 solve must trace into one compiled program with the prepared format as a
-pytree — covering DIA, window and routed engine matvecs inside
-lax.while_loop/fori_loop control flow."""
+pytree — covering the DIA kernel, transposed-ELL and row-binned engine
+matvecs inside lax.while_loop/fori_loop control flow."""
 import numpy as np
 import pytest
 
@@ -30,7 +30,7 @@ def _spd_coo(m, half_bw, seed):
     return sort_coo(COOMatrix((m, m), r, c, d[r, c])), d
 
 
-@pytest.mark.parametrize("fmt", ["dia", "window", "routed"])
+@pytest.mark.parametrize("fmt", ["dia", "ell_t", "binned"])
 def test_cg_converges_on_spd_band(fmt):
     coo, dense = _spd_coo(600, 6, seed=3)
     csr = S.coo_to_csr(coo)
@@ -47,16 +47,25 @@ def test_cg_converges_on_spd_band(fmt):
 
 
 def test_cg_double_float_engine():
-    """CG rides the f64 path end-to-end (double-float DIA under the hood)."""
-    coo, dense = _spd_coo(500, 5, seed=7)
-    csr = S.coo_to_csr(coo)
+    """CG runs the float64 path end-to-end (native f64 DIA kernel)."""
+    import jax
+
     from spmv_openmp_cuda_tpu.config import Config
-    model = AutoSpMV.from_csr(csr, cfg=Config(dtype="float64"))
-    rng = np.random.default_rng(2)
-    xstar = rng.standard_normal(500)
-    b = dense @ xstar
-    res = conjugate_gradient(model, b, tol=1e-10, maxiter=600)
-    err = np.abs(np.asarray(res.x, np.float64) - xstar).max()
+
+    before = jax.config.jax_enable_x64
+    try:
+        coo, dense = _spd_coo(500, 5, seed=7)
+        csr = S.coo_to_csr(coo)
+        model = AutoSpMV.from_csr(csr, cfg=Config(dtype="float64"))
+        assert model.format == "dia"
+        rng = np.random.default_rng(2)
+        xstar = rng.standard_normal(500)
+        b = dense @ xstar
+        res = conjugate_gradient(model, b, tol=1e-10, maxiter=600)
+        assert res.x.dtype == np.float64
+        err = np.abs(np.asarray(res.x, np.float64) - xstar).max()
+    finally:
+        jax.config.update("jax_enable_x64", before)
     assert err < 1e-6, (err, int(res.iters), float(res.relres))
 
 

@@ -104,3 +104,44 @@ def test_dia_offsets_sound():
             if 0 <= c < 128:
                 dense[r, c] = data[i, r]
     np.testing.assert_allclose(dense, coo.to_dense(), atol=1e-6)
+
+
+def test_dia_wide_band():
+    # diagonal reach (300) far beyond the 128-row alignment
+    csr = S.coo_to_csr(synth.banded(600, 600, 300, fill=0.05, seed=3))
+    mat = prepare_dia(csr, max_fill_ratio=1e9)
+    assert mat.pad_lo == 300 and mat.pad_hi == 300
+    x = fill_rnd_vector(600, seed=6)
+    y = np.asarray(jax.jit(dia_spmv)(mat, jnp.asarray(x, jnp.float32)), np.float64)
+    assert vectors_diff(y, serial_csr_spmv(csr, x)).ok
+
+
+def test_dia_wide_matrix_far_band():
+    # short matrix, far-off diagonal (reach >> m): pad_x_dia must clip
+    # n >> row reach and keep every shifted slice in bounds
+    from spmv_openmp_cuda_tpu.formats.matrix import COOMatrix
+    from spmv_openmp_cuda_tpu.formats.convert import sort_coo
+
+    m, n = 2560, 65536
+    rows = np.arange(m)
+    cols = rows + 60000
+    ok = cols < n
+    rng = np.random.default_rng(44)
+    coo = sort_coo(COOMatrix((m, n), rows[ok], cols[ok], rng.standard_normal(ok.sum())))
+    csr = S.coo_to_csr(coo)
+    mat = prepare_dia(csr, max_fill_ratio=1e9)
+    x = fill_rnd_vector(n, seed=45)
+    y = np.asarray(dia_spmv(mat, jnp.asarray(x, jnp.float32)), np.float64)
+    assert vectors_diff(y, serial_csr_spmv(csr, x)).ok
+
+
+def test_dia_bf16_slab_accumulates_in_f32():
+    from spmv_openmp_cuda_tpu.utils.compare import relative_error
+
+    csr = S.coo_to_csr(synth.banded(2000, 2000, 20, seed=5))
+    x = np.random.default_rng(6).uniform(-1, 1, 2000)
+    mat = prepare_dia(csr, dtype=jnp.bfloat16)
+    y = dia_spmv(mat, jnp.asarray(x, jnp.float32))
+    assert y.dtype == jnp.float32
+    # bf16 keeps 8 mantissa bits of each value; sums stay f32
+    assert relative_error(y, csr, x) <= 8e-3

@@ -50,8 +50,8 @@ def test_fem_proxy_structure():
     assert lens.min() >= 1
     with pytest.raises(DiaFillError):
         prepare_dia(csr)
-    # a general engine (the windowed local-gather for this locality), not DIA
-    assert select_format(csr) in ("window", "routed")
+    # a general engine, not DIA
+    assert select_format(csr) == "binned"
     # diagonal present on every row (FEM)
     diag_mask = csr.indices == csr.row_ids()
     assert np.bincount(csr.row_ids()[diag_mask], minlength=20000).min() == 1
